@@ -1,0 +1,698 @@
+"""The PyTorch/CUDA port (hap_tpu_torch) against the JAX reference, on the CPU.
+
+Every module of the port that holds a kernel, and the Hap Q + LZ main path
+as a whole, is held against the JAX package on the same inputs (made from
+seeds with numpy):
+
+* layout and scaled YCoCg: exact at 1x1, 5x3, 17x33, 37x53 and 64x64;
+* BC4 encode and BC4/BC1 decode: exact; BC1 encode (float32 least-squares
+  refit): at most 1% of blocks differ (tie blocks), quality within 0.05 dB;
+* the LZ planner: every LzPlan field exact; kernel A's plain version
+  byte-identical to the reference emitter; kernels B-D's plain versions
+  against numpy and hand-corrupted streams;
+* frames: byte-identical to the reference's host serializer around the
+  same streams; the decoder fuzzed as the reference's device decoder is;
+* the slice: the reference's own main path (encode_pipeline and
+  decode_pipeline, Pallas kernels in interpret mode) runs once on a 64x128
+  frame; the port rebuilds its frame bytes from its words, decodes its
+  frame bit-exactly, and encodes the pixels to the same BC4 words.
+
+The CUDA kernels themselves are held against these plain versions on the
+GPU by ``chip_smoke.py``.
+
+All of it is THREE tests. The full suite runs under pytest-xdist, whose load
+scheduler sizes its batches from the number of collected tests; every
+test this file adds reshuffles which worker runs which JAX test. In this
+repository's suite that is not neutral: long-lived workers accumulate the
+memory mappings of every XLA executable they compile, and a schedule that
+piles more compiles onto one worker drives it into the process's map
+limit and kills it inside an XLA compile. Few tests move the schedule
+little. torch and the port are imported inside the tests, so a worker
+that never runs them never loads torch.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from hap_tpu.constants import Compressor, HapError as RefHapError, TextureFormat
+from hap_tpu.container.parse import parse_frame as ref_parse_frame
+from hap_tpu.container.plan import legalize_chunk_count as ref_legalize
+from hap_tpu.container.serialize import serialize_texture
+from hap_tpu.kernels import bc1 as j1
+from hap_tpu.kernels import bc4 as j4
+from hap_tpu.kernels import layout as jl
+from hap_tpu.kernels import ycocg as jy
+from hap_tpu.pipeline import device_pipeline as jpipe
+from hap_tpu.snappy import device_lz as jlz
+from hap_tpu.snappy import pyref as ref_pyref
+from tools import bench_content
+
+G = 16  # Hap Q block bytes
+
+
+def _load_port():
+    """Import torch and the port into this module's globals."""
+    import torch
+    from hap_tpu_torch.constants import (
+        FORMAT_YCOCG_DXT5, HapError, legalize_chunk_count)
+    from hap_tpu_torch.container.parse import parse_frame
+    from hap_tpu_torch.content import make_frame, make_gop
+    from hap_tpu_torch.kernels import bc1 as t1
+    from hap_tpu_torch.kernels import bc4 as t4
+    from hap_tpu_torch.kernels import layout as tl
+    from hap_tpu_torch.kernels import ycocg as ty
+    from hap_tpu_torch.pipeline.device_frame import (
+        _encode_chunks, decode_frame_device, encode_frame_device,
+        frame_layout)
+    from hap_tpu_torch.pipeline.device_pipeline import (
+        decode_pipeline, encode_blocks, encode_pipeline, encode_words,
+        roundtrip_pipeline)
+    from hap_tpu_torch.reference_state import (
+        encode_settings, lz_plan_from_numpy, words_from_numpy)
+    from hap_tpu_torch.snappy import device_lz as tlz
+    from hap_tpu_torch.snappy import pyref
+    from hap_tpu_torch.snappy.lz_kernels import (
+        LZ_DECODE, LZ_EMIT, decode_lz_streams_from_frame, emit_lz_streams)
+    from hap_tpu_torch.snappy.stream_kernels import (
+        RAW_CHUNKS, STITCH, raw_chunks_from_frame, stitch_streams)
+    torch.set_num_threads(1)
+    globals().update(locals())
+
+
+def _i32(a):
+    return torch.from_numpy(np.asarray(a).view(np.int32).copy())
+
+
+def _u32(t):
+    return t.numpy().view(np.uint32)
+
+
+def _psnr(a, b):
+    d = a.astype(np.float64) - b.astype(np.float64)
+    return 10 * np.log10(255.0 ** 2 / max(np.mean(d * d), 1e-12))
+
+
+def _rand_img(seed, h, w, c=3):
+    shape = (h, w, c) if c else (h, w)
+    return np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# layout, scaled YCoCg, BC4, BC1
+# ---------------------------------------------------------------------------
+
+SHAPES = [(1, 1), (5, 3), (17, 33), (37, 53), (64, 64)]
+
+
+def _reference_texture_plane(img, h, w):
+    @jax.jit
+    def f(x):
+        planes = jl.image_to_block_planes(x)
+        cocgs, y = jy.rgb_to_cocgs_y_planes(planes)
+        rgb = jy.cocgs_y_to_rgb_planes_f32(cocgs, y)
+        blocks = jl.image_to_blocks(x)
+        y0, y1 = j4.bc4_encode_planes_words(y)
+        return (planes, cocgs, y, rgb, blocks,
+                jl.blocks_to_image(blocks, h, w),
+                jl.block_planes_to_image(rgb.astype(jnp.uint8), h, w),
+                y0, y1, j4.bc4_decode_planes(y0, y1))
+    return [np.asarray(a) for a in f(jnp.asarray(img))]
+
+
+def _check_layout_ycocg_bc4(h, w):
+    img = _rand_img(h * 1000 + w, h, w)
+    (planes, cocgs, y, rgb, blocks, b2i, p2i, y0, y1,
+     y_dec) = _reference_texture_plane(img, h, w)
+    x = torch.from_numpy(img)
+    tp = tl.image_to_block_planes(x)
+    tc, tyy = ty.rgb_to_cocgs_y_planes(tp)
+    trgb = ty.cocgs_y_to_rgb_planes_f32(tc, tyy)
+    tb = tl.image_to_blocks(x)
+    np.testing.assert_array_equal(tp.numpy(), planes)
+    np.testing.assert_array_equal(tc.numpy(), cocgs)
+    np.testing.assert_array_equal(tyy.numpy(), y)
+    np.testing.assert_array_equal(trgb.numpy(), rgb)
+    np.testing.assert_array_equal(
+        ty.cocgs_y_to_rgb_planes(tc, tyy).numpy(), rgb.astype(np.uint8))
+    np.testing.assert_array_equal(tb.numpy(), blocks)
+    np.testing.assert_array_equal(tl.blocks_to_image(tb, h, w).numpy(), b2i)
+    np.testing.assert_array_equal(
+        tl.block_planes_to_image(trgb.to(torch.uint8), h, w).numpy(), p2i)
+    np.testing.assert_array_equal(tl.block_planes_to_image(tp, h, w).numpy(),
+                                  img)
+    m0, m1 = t4.bc4_encode_planes_words(tyy)
+    np.testing.assert_array_equal(_u32(m0), y0)
+    np.testing.assert_array_equal(_u32(m1), y1)
+    np.testing.assert_array_equal(
+        t4.bc4_decode_planes(_i32(y0), _i32(y1)).numpy(), y_dec)
+
+
+def _check_single_channel_planes():
+    img = _rand_img(5, 9, 7, c=0)
+    ref = np.asarray(jl.image_to_block_planes(jnp.asarray(img)))
+    tp = tl.image_to_block_planes(torch.from_numpy(img))
+    np.testing.assert_array_equal(tp.numpy(), ref)
+    np.testing.assert_array_equal(tl.block_planes_to_image(tp, 9, 7).numpy(),
+                                  img)
+    assert tl.padded_dims(9, 7) == jl.padded_dims(9, 7) == (12, 8)
+
+
+def _check_word_interleave(k, n):
+    rng = np.random.default_rng(k * n)
+    ws = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(k)]
+    ref = np.asarray(jl.interleave_words_mxu(tuple(jnp.asarray(w) for w in ws)))
+    mine = tl.interleave_words([_i32(w) for w in ws])
+    np.testing.assert_array_equal(_u32(mine), ref)
+    for w, b in zip(ws, tl.deinterleave_words(mine, k)):
+        np.testing.assert_array_equal(_u32(b), w)
+
+
+def _check_payload_views():
+    words = np.array([0x04030201, 0xF0E0D0C0], np.uint32)
+    pay = tl.words_to_payload(_i32(words))
+    assert pay.numpy().tobytes() == words.astype("<u4").tobytes()
+    np.testing.assert_array_equal(_u32(tl.payload_to_words(pay)), words)
+    with pytest.raises(ValueError):
+        tl.payload_to_words(torch.zeros(6, dtype=torch.uint8))
+
+
+def _check_decoders_on_random_words():
+    """Arbitrary words exercise BC4's 6-interp mode (a0 <= a1) and BC1's
+    3-colour punch-through mode (c0 <= c1)."""
+    rng = np.random.default_rng(11)
+    w0, w1 = (rng.integers(0, 2**32, 4096, dtype=np.uint32) for _ in range(2))
+
+    @jax.jit
+    def ref(w0, w1):
+        return (j4.bc4_decode_planes(w0, w1),
+                j1.bc1_decode_planes(w0, w1, True),
+                j1.bc1_decode_planes(w0, w1, False))
+
+    bc4_ref, *bc1_refs = ref(jnp.asarray(w0), jnp.asarray(w1))
+    np.testing.assert_array_equal(
+        t4.bc4_decode_planes(_i32(w0), _i32(w1)).numpy(), np.asarray(bc4_ref))
+    for punch, (jrgb, jop) in zip((True, False), bc1_refs):
+        rgb, opaque = t1.bc1_decode_planes(_i32(w0), _i32(w1), punch)
+        np.testing.assert_array_equal(rgb.numpy(), np.asarray(jrgb))
+        np.testing.assert_array_equal(opaque.numpy(), np.asarray(jop))
+
+
+def _check_bc1_encode_parity():
+    imgs = [make_frame(c, 1, 64, 64) for c in ("natural", "graphics", "noise")]
+    imgs.append(_rand_img(2, 64, 64))
+    ref = jax.jit(lambda c: j1.bc1_encode_planes_words(c, 2, False))
+    mismatch = total = 0
+    for img in imgs:
+        cocgs, _ = ty.rgb_to_cocgs_y_planes(
+            tl.image_to_block_planes(torch.from_numpy(img)))
+        c0, c1 = (np.asarray(a) for a in ref(jnp.asarray(cocgs.numpy())))
+        c_ref, _ = t1.bc1_decode_planes(_i32(c0), _i32(c1), False)
+        m0, m1 = t1.bc1_encode_planes_words(cocgs, refine_iters=2)
+        diff = (_u32(m0) != c0) | (_u32(m1) != c1)
+        mismatch += int(diff.sum())
+        total += diff.size
+        rgb, _ = t1.bc1_decode_planes(m0, m1, dxt1_punchthrough=False)
+        src = cocgs.numpy()
+        assert abs(_psnr(rgb.numpy(), src) - _psnr(c_ref.numpy(), src)) <= 0.05
+    assert mismatch <= 0.01 * total, (mismatch, total)
+    with pytest.raises(NotImplementedError):  # effort="best" is not ported
+        t4.bc4_encode_planes_words(torch.zeros((16, 4)), candidates=True)
+    with pytest.raises(NotImplementedError):
+        t1.bc1_encode_planes_words(torch.zeros((3, 16, 4)), candidates=True)
+
+
+# ---------------------------------------------------------------------------
+# LZ planner and the plain versions of kernels A-D
+# ---------------------------------------------------------------------------
+
+LZ_S = 4608  # 1152 words: the last 256-word segment is padded
+LZ_ROW = 16 * 288 // 4
+
+
+def _payload_rows(rng):
+    rows = [np.full(LZ_S, 0xAB, np.uint8),
+            np.tile(rng.integers(0, 256, 16, dtype=np.uint8), LZ_S // 16),
+            rng.integers(0, 256, LZ_S, dtype=np.uint8)]
+    mixed = np.tile(rng.integers(0, 256, 48, dtype=np.uint8),
+                    LZ_S // 48 + 1)[:LZ_S]
+    mixed[LZ_S // 2:] = rng.integers(0, 256, LZ_S - LZ_S // 2)
+    rows.append(mixed)
+    for cls in ("natural", "graphics"):  # real DXT payloads
+        img = torch.from_numpy(make_frame(cls, 2, 32, 288))
+        rows.append(tl.words_to_payload(encode_blocks(img)).numpy()[:LZ_S])
+    return np.stack(rows)
+
+
+@pytest.fixture(scope="module")
+def reference_plan():
+    """The JAX planner, jitted once over every content kind (with clean
+    JAX caches around it, as the main-path fixture)."""
+    jax.clear_caches()
+    _load_port()
+    data = _payload_rows(np.random.default_rng(3))
+    ref = jax.jit(jlz.plan_lz, static_argnums=(1, 2, 3))(
+        jnp.asarray(data), LZ_S, 16, LZ_ROW)
+    ref = [np.asarray(a) for a in ref]
+    jax.clear_caches()
+    return data, ref
+
+
+def _check_plan_and_emission(data, ref):
+    plan = tlz.plan_lz(torch.from_numpy(data), LZ_S, 16, LZ_ROW)
+    for name, a, b in zip(jlz.LzPlan._fields, ref, plan):
+        np.testing.assert_array_equal(b.numpy(), a, err_msg=name)
+    assert int(plan.counts.max()) <= tlz.SEG_SLOTS
+    streams = jlz.emit_reference(data, jlz.LzPlan(*ref), LZ_S)
+    emitted = emit_lz_streams(torch.from_numpy(data), plan, LZ_S).numpy()
+    assert emitted.shape == (len(data), tlz.lz_bound(LZ_S))
+    for c, st in enumerate(streams):
+        assert emitted[c, :len(st)].tobytes() == st
+        assert not emitted[c, len(st):].any()
+        assert ref_pyref.decompress(st, LZ_S) == data[c].tobytes()
+
+
+def _check_static_planning_facts():
+    for S, row_bytes, g in ((4096, 256, 8), (129600, 15360, 16), (64, 0, 16)):
+        assert tlz.candidate_distances(S, row_bytes, g) == \
+            jlz.candidate_distances(S, row_bytes, g)
+        assert tlz.lz_bound(S) == jlz.lz_bound(S)
+        np.testing.assert_array_equal(tlz._varint(S), jlz._varint(S))
+
+
+def _streams(data):
+    S = data.shape[1]
+    plan = tlz.plan_lz(torch.from_numpy(data), S, 16, 256)
+    comp = emit_lz_streams(torch.from_numpy(data), plan, S)
+    return [comp[c, :int(plan.comp_len[c])].numpy().tobytes()
+            for c in range(len(data))]
+
+
+def _lz_decode(streams, S, is_comp=None):
+    """Streams back to back in one buffer through kernel C's plain version."""
+    pos = np.cumsum([0] + [len(s) for s in streams[:-1]]).astype(np.int32)
+    frame = np.frombuffer(b"".join(streams) + bytes(64), np.uint8).copy()
+    sizes = np.array([len(s) for s in streams], np.int32)
+    C = len(streams)
+    cis = torch.ones(C, dtype=torch.bool) if is_comp is None else is_comp
+    out = torch.zeros((C, S), dtype=torch.uint8)
+    ok = torch.zeros(C, dtype=torch.bool)
+    decode_lz_streams_from_frame(torch.from_numpy(frame), torch.from_numpy(pos),
+                                 torch.from_numpy(sizes), cis, S, out, ok)
+    return out.numpy(), ok.numpy()
+
+
+def _check_lz_decode_roundtrip():
+    data = _payload_rows(np.random.default_rng(4))[:, :4096]
+    streams = _streams(data)
+    for c, st in enumerate(streams):
+        assert ref_pyref.decompress(st, 4096) == data[c].tobytes()
+    out, ok = _lz_decode(streams, 4096)
+    assert ok.all()
+    np.testing.assert_array_equal(out, data)
+
+
+def _check_lz_decode_rejects_out_of_profile_streams():
+    S = 2048
+    rng = np.random.default_rng(5)
+    data = np.tile(rng.integers(0, 256, 6, dtype=np.uint8), S // 6 + 1)[:S]
+    copy1 = ref_pyref.compress(data.tobytes())  # short offsets -> copy-1
+    assert any(b & 3 == 1 for b in copy1[2:])
+    lit64 = bytes([60 << 2, 63]) + bytes(range(64))
+    good = bytes([0x80, 0x10]) + lit64 + \
+        bytes([2 | (63 << 2), 64, 0]) * 31  # literal 64 + 31 copy-2 d=64
+    cases = {
+        "copy-1": copy1,
+        "offset < 8": bytes([0x80, 0x10, 7 << 2]) + bytes(8)
+        + bytes([2 | (63 << 2), 4, 0]) * 32,
+        "bad preamble": bytes([0x81, 0x10]) + good[2:],
+        "4-byte literal length": bytes([0x80, 0x10, 63 << 2, 0xFF, 7, 0, 0])
+        + bytes(S),
+        "copy-4": bytes([0x80, 0x10]) + lit64
+        + bytes([3 | (63 << 2), 64, 0, 0, 0]) * 31,
+        "offset past output": bytes([0x80, 0x10, 7 << 2]) + bytes(8)
+        + bytes([2 | (63 << 2), 16, 0]) * 32,
+        "truncated": good[:-2],
+        "trailing bytes": good + bytes([0]),
+        "short output": good[:-3],
+    }
+    out, ok = _lz_decode([good] + list(cases.values()), S)
+    assert ok[0]
+    np.testing.assert_array_equal(out[0], np.tile(np.arange(64), 32))
+    assert ref_pyref.decompress(good, S) == out[0].tobytes()
+    assert not ok[1:].any(), dict(zip(cases, ok[1:]))
+
+    # raw chunks are left to kernel D: row untouched, ok untouched
+    data = np.random.default_rng(6).integers(0, 256, (2, 1024), dtype=np.uint8)
+    streams = [_streams(data)[0], b"\x00" * 5]
+    out, ok = _lz_decode(streams, 1024, torch.tensor([True, False]))
+    assert ok[0] and not ok[1]
+    np.testing.assert_array_equal(out[0], data[0])
+    assert not out[1].any()
+
+
+def _check_stitch():
+    rng = np.random.default_rng(7)
+    C, B, S = 5, 40, 32
+    comp = torch.from_numpy(rng.integers(1, 256, (C, B), dtype=np.uint8))
+    chunks = torch.from_numpy(rng.integers(1, 256, (C, S), dtype=np.uint8))
+    src_comp = torch.tensor([True, False, True, True, False])
+    lengths = torch.tensor([7, S, 40, 1, S], dtype=torch.int32)
+    header = torch.from_numpy(rng.integers(1, 256, 12, dtype=np.uint8))
+    q = (12 + torch.cumsum(lengths, 0) - lengths).to(torch.int32)
+    frame = stitch_streams(header, torch.tensor(12, dtype=torch.int32), comp,
+                           chunks, src_comp, q, lengths, 200).numpy()
+    want = np.concatenate([header.numpy()] + [
+        (comp if bool(src_comp[c]) else chunks)[c, :int(lengths[c])].numpy()
+        for c in range(C)])
+    np.testing.assert_array_equal(frame[:len(want)], want)
+    assert not frame[len(want):].any() and frame.shape == (200,)
+
+
+def _check_raw_chunks():
+    S = 64
+    frame = torch.from_numpy(
+        np.random.default_rng(8).integers(0, 256, 300, dtype=np.uint8))
+    pos = torch.tensor([10, 74, 250, 200], dtype=torch.int32)
+    csizes = torch.tensor([S, S - 1, S, 17], dtype=torch.int32)
+    is_comp = torch.tensor([False, False, False, True])
+    out, ok = raw_chunks_from_frame(frame, pos, csizes, is_comp, S)
+    f = frame.numpy()
+    np.testing.assert_array_equal(out[0].numpy(), f[10:74])
+    np.testing.assert_array_equal(out[1].numpy(), f[74:138])
+    np.testing.assert_array_equal(out[2].numpy()[:50], f[250:])
+    assert not out[2].numpy()[50:].any()  # past the frame reads as 0
+    assert ok.tolist() == [True, False, True, True]
+
+
+# ---------------------------------------------------------------------------
+# frames
+# ---------------------------------------------------------------------------
+
+def _serializer_payload(kind, nbytes, rng):
+    if kind == "flat":
+        return np.tile(rng.integers(0, 256, G, dtype=np.uint8), nbytes // G)
+    if kind == "random":
+        return rng.integers(0, 256, nbytes, dtype=np.uint8)
+    out = np.empty(nbytes, np.uint8)  # mixed: per-chunk raw fallbacks
+    half = nbytes // 2
+    out[:half] = np.tile(rng.integers(0, 256, G, dtype=np.uint8),
+                         half // G + 1)[:half]
+    out[half:] = rng.integers(0, 256, nbytes - half, dtype=np.uint8)
+    return out
+
+
+def _check_frame_bytes_match_host_serializer(kind, chunks):
+    payload = _serializer_payload(kind, 1024 * G,
+                                  np.random.default_rng(len(kind)))
+    S = len(payload) // chunks
+    comp, comp_len = _encode_chunks(
+        torch.from_numpy(payload).reshape(chunks, S), S, G, 0)
+    streams = [comp[c, :int(comp_len[c])].numpy().tobytes()
+               for c in range(chunks)]
+    host = serialize_texture(payload.tobytes(), TextureFormat.YCoCg_DXT5,
+                             Compressor.SNAPPY, chunks, precompressed=streams)
+    frame, flen = encode_frame_device(torch.from_numpy(payload), chunks,
+                                      FORMAT_YCOCG_DXT5, G)
+    fb = frame.numpy()
+    assert fb.shape == (frame_layout(len(payload), chunks, G)[-1],)
+    assert int(flen) == len(host)
+    assert fb[: int(flen)].tobytes() == host
+    assert not fb[int(flen):].any()
+
+
+def _host_payload(fb: bytes, nbytes=None):
+    """Payload by the reference's host parser + Snappy codec; None where the
+    reference rejects the frame (or its size is not ``nbytes``)."""
+    try:
+        tex = ref_parse_frame(fb).textures[0]
+        if tex.texture_format != TextureFormat.YCoCg_DXT5:
+            return None
+        parts = []
+        for i in range(tex.chunk_count):
+            a = int(tex.chunk_compressed_offsets[i])
+            blob = fb[a: a + int(tex.chunk_compressed_sizes[i])]
+            parts.append(ref_pyref.decompress(blob)
+                         if tex.chunk_compressors[i] == 0x0B else blob)
+    except (RefHapError, ValueError, IndexError):
+        return None
+    out = b"".join(parts)
+    return out if nbytes is None or len(out) == nbytes else None
+
+
+FUZZ_H, FUZZ_W, FUZZ_CHUNKS = 32, 64, 4
+
+
+def _fuzz_frame(img):
+    payload = tl.words_to_payload(encode_blocks(torch.from_numpy(img)))
+    frame, flen = encode_frame_device(payload, FUZZ_CHUNKS, FORMAT_YCOCG_DXT5,
+                                      G, row_bytes=G * FUZZ_W // 4)
+    return frame.numpy().copy(), int(flen), payload.numpy()
+
+
+def _decodes(frame, flen):
+    """Port decode; ok=True must mean the reference host decoder accepts the
+    same bytes with the same payload."""
+    nbytes = FUZZ_H * FUZZ_W
+    out, ok = decode_frame_device(torch.from_numpy(frame), nbytes,
+                                  FUZZ_CHUNKS, FORMAT_YCOCG_DXT5, G)
+    if bool(ok):
+        host = _host_payload(frame[:flen].tobytes(), nbytes)
+        assert host is not None, "port accepted a frame the host rejects"
+        assert out.numpy().tobytes() == host
+    return bool(ok)
+
+
+def _check_decoder_fuzz():
+    complex_ = _fuzz_frame(np.full((FUZZ_H, FUZZ_W, 3), 77, np.uint8))
+    raw = _fuzz_frame(_rand_img(2, FUZZ_H, FUZZ_W))
+    assert complex_[0][3] >> 4 == 0xC and raw[0][3] >> 4 == 0xA
+    nbytes = FUZZ_H * FUZZ_W
+    for frame, flen, payload in (complex_, raw):
+        out, ok, reasons = decode_frame_device(
+            torch.from_numpy(frame), nbytes, FUZZ_CHUNKS, FORMAT_YCOCG_DXT5,
+            G, with_reasons=True)
+        assert bool(ok) and reasons.tolist() == [1, 1, 1, 1, 1]
+        np.testing.assert_array_equal(out.numpy(), payload)
+        words, _ = decode_frame_device(torch.from_numpy(frame[:flen]), nbytes,
+                                       FUZZ_CHUNKS, FORMAT_YCOCG_DXT5, G,
+                                       out_words=True)
+        np.testing.assert_array_equal(words.numpy(), payload.view(np.int32))
+        # single-byte corruptions: never crash, ok only with host agreement
+        rng = np.random.default_rng(7)
+        for pos in list(range(min(48, flen))) + sorted(
+                rng.integers(48, flen, 32).tolist()):
+            for delta in (1, 0x80):
+                f = frame.copy()
+                f[pos] ^= delta
+                _decodes(f, flen)
+
+    frame, flen, _ = complex_
+    for pos in range(16):  # structural bytes of a Complex frame
+        for delta in (1, 0x80):
+            f = frame.copy()
+            f[pos] ^= delta
+            assert not _decodes(f, flen), (pos, delta)
+    f = frame.copy()
+    f[4 + 4 + 4 + FUZZ_CHUNKS + 4] ^= 0x40  # first size entry
+    assert not _decodes(f, flen)
+    # a compressor byte flipped from Snappy to raw leaves a size entry != S:
+    # the raw-chunk path must reject it
+    f = frame.copy()
+    assert f[4 + 8] == 0x0B
+    f[4 + 8] = 0x0A
+    _, ok, reasons = decode_frame_device(
+        torch.from_numpy(f), nbytes, FUZZ_CHUNKS, FORMAT_YCOCG_DXT5, G,
+        with_reasons=True)
+    assert not bool(ok) and reasons.tolist()[4] == 0
+    assert not _decodes(np.zeros_like(frame), flen)
+    torn = frame.copy()
+    torn[flen // 2:] = 0
+    assert not _decodes(torn, flen)
+    for nib in (0x00, 0x5F, 0xBF, 0xCE):
+        f = frame.copy()
+        f[3] = nib
+        assert not _decodes(f, flen)
+
+
+# ---------------------------------------------------------------------------
+# the slice as a whole
+# ---------------------------------------------------------------------------
+
+H, W, CHUNKS = 64, 128, 4
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The reference's own main path on a 64x128 natural frame:
+    encode_pipeline + decode_pipeline, the only two JAX pipeline compiles of
+    this file. XLA executables stay mapped while JAX caches them, so a
+    worker that compiled much before must not meet the process's map limit
+    inside these compiles: start and end with clean caches."""
+    jax.clear_caches()
+    img = bench_content.make_frame("natural", 0, H, W)
+    frame, flen = jpipe.encode_pipeline(jnp.asarray(img), "hap_q", CHUNKS)
+    out, ok = jpipe.decode_pipeline(frame, H, W, "hap_q", CHUNKS)
+    assert bool(ok)
+    frame, out = np.asarray(frame), np.asarray(out)
+    jax.clear_caches()
+    return img, frame, int(flen), out
+
+
+def _check_slice_against_reference(img, frame, flen, ref_out):
+    payload = _host_payload(frame[:flen].tobytes())
+    ref_words = np.frombuffer(payload, "<u4")
+
+    # frame bytes from the reference's words: LZ plan, emission, assembly
+    mine, mine_len = encode_words(words_from_numpy(ref_words), H, W, CHUNKS)
+    assert int(mine_len) == flen
+    np.testing.assert_array_equal(mine.numpy(), frame)
+
+    # bit-exact decode of the reference's frame
+    dec, ok = decode_pipeline(frame, H, W, "hap_q", CHUNKS, device="cpu")
+    assert bool(ok)
+    np.testing.assert_array_equal(dec.numpy(), ref_out)
+
+    # the port's own encode
+    words = encode_blocks(torch.from_numpy(img))
+    y0, y1, c0, c1 = (_u32(w) for w in tl.deinterleave_words(words, 4))
+    r = ref_words.reshape(-1, 4)
+    np.testing.assert_array_equal(y0, r[:, 0])
+    np.testing.assert_array_equal(y1, r[:, 1])
+    bc1_diff = (c0 != r[:, 2]) | (c1 != r[:, 3])
+    assert bc1_diff.sum() <= 0.01 * len(bc1_diff), int(bc1_diff.sum())
+    out, _, ok2 = roundtrip_pipeline(img, "hap_q", CHUNKS, device="cpu")
+    assert bool(ok2)
+    assert abs(_psnr(out.numpy(), img) - _psnr(ref_out, img)) <= 0.05
+
+
+def _check_roundtrip_on_host(cls):
+    img = make_frame(cls, 1, H, W)
+    frame, flen = encode_pipeline(img, "hap_q", CHUNKS, device="cpu")
+    fb = frame[: int(flen)].numpy().tobytes()
+    tex = parse_frame(fb).textures[0]
+    assert tex.format_id == 0xF and tex.decoded_bytes == H * W
+    payload = b"".join(
+        pyref.decompress(fb[a: a + n], S) if comp == 0x0B else fb[a: a + n]
+        for comp, a, n, S in zip(
+            tex.chunk_compressors, tex.chunk_compressed_offsets.tolist(),
+            tex.chunk_compressed_sizes.tolist(),
+            tex.chunk_uncompressed_sizes.tolist()))
+    words = encode_blocks(torch.from_numpy(img))
+    assert payload == tl.words_to_payload(words).numpy().tobytes()
+    assert payload == _host_payload(fb)
+    out, ok = decode_pipeline(frame, H, W, "hap_q", CHUNKS, device="cpu")
+    assert bool(ok) and out.shape == (H, W, 3)
+    assert _psnr(out.numpy(), img) > {"natural": 40, "graphics": 40,
+                                      "noise": 15}[cls]
+
+
+def _check_host_copies():
+    data = np.tile(np.random.default_rng(9).integers(0, 256, 5, dtype=np.uint8),
+                   400).tobytes()
+    stream = ref_pyref.compress(data)  # copy-1 and copy-2 elements
+    assert pyref.decompress(stream, len(data)) == data
+    with pytest.raises(HapError):
+        pyref.decompress(stream[:-1], len(data))
+    frame, flen = encode_pipeline(make_frame("graphics", 3, 32, 64), "hap_q",
+                                  2, device="cpu")
+    fb = frame[: int(flen)].numpy().tobytes()
+    mine, ref = parse_frame(fb).textures[0], ref_parse_frame(fb).textures[0]
+    assert ref.texture_format == TextureFormat.YCoCg_DXT5
+    for field in ("chunk_compressors", "chunk_compressed_offsets",
+                  "chunk_compressed_sizes", "chunk_uncompressed_sizes"):
+        np.testing.assert_array_equal(getattr(mine, field), getattr(ref, field))
+    with pytest.raises(HapError):
+        parse_frame(fb[:-1])
+
+
+def _check_content_settings_and_state():
+    for cls in ("natural", "graphics", "noise"):
+        np.testing.assert_array_equal(make_frame(cls, 4, 48, 80),
+                                      bench_content.make_frame(cls, 4, 48, 80))
+    np.testing.assert_array_equal(make_gop(4, 24, 40),
+                                  bench_content.make_gop(4, 24, 40))
+    for effort in ("high", "fast"):
+        assert encode_settings(effort) == (jpipe._refine(effort),
+                                           jpipe._cands(effort))
+    with pytest.raises(ValueError):
+        encode_settings("medium")
+    for nbytes, cc in ((8294400, 64), (2048 * 16, 7), (16 * 45, 64)):
+        assert legalize_chunk_count(nbytes, 16, cc) == \
+            ref_legalize(nbytes, TextureFormat.YCoCg_DXT5, cc)
+    rng = np.random.default_rng(1)
+    words = rng.integers(0, 2**32, 8, dtype=np.uint32)
+    np.testing.assert_array_equal(_u32(words_from_numpy(words)), words)
+    arrays = [rng.integers(-2**31, 2**31, s, dtype=np.int64).astype(np.int32)
+              for s in ((2, 64, 2), (2, 64, 2), (2, 2, 2), (2,), (2,))]
+    for a, b in zip(arrays, lz_plan_from_numpy(*arrays)):
+        assert b.dtype == torch.int32
+        np.testing.assert_array_equal(b.numpy(), a)
+    with pytest.raises(TypeError):
+        words_from_numpy(np.zeros(3, np.float32))
+
+
+def _check_device_rules():
+    img = make_frame("graphics", 0, 8, 8)
+    with pytest.raises(NotImplementedError):
+        encode_pipeline(img, "hap", 1, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            roundtrip_pipeline(img, "hap_q", 1)
+    root = Path(__file__).resolve().parent.parent
+    pat = re.compile(r"^\s*(import|from)\s+(jax|hap_tpu\b|tools)", re.M)
+    for f in sorted((root / "hap_tpu_torch").rglob("*.py")) + [
+            root / "chip_smoke.py"]:
+        assert not pat.search(f.read_text()), f"{f} imports the reference"
+
+
+def test_port_modules_match_reference(reference_plan):
+    _load_port()
+    for h, w in SHAPES:
+        _check_layout_ycocg_bc4(h, w)
+    _check_single_channel_planes()
+    _check_word_interleave(4, 300)
+    _check_word_interleave(2, 128)
+    _check_payload_views()
+    _check_decoders_on_random_words()
+    _check_bc1_encode_parity()
+
+    _check_static_planning_facts()
+    _check_plan_and_emission(*reference_plan)
+    _check_lz_decode_roundtrip()
+    _check_lz_decode_rejects_out_of_profile_streams()
+    _check_stitch()
+    _check_raw_chunks()
+
+    _check_no_kernel_launches()
+    jax.clear_caches()  # this test's own compiles, as the fixture's
+
+
+def test_frames_match_serializer_and_survive_fuzz():
+    _load_port()
+    for kind, chunks in (("mixed", 8), ("random", 4), ("flat", 16)):
+        _check_frame_bytes_match_host_serializer(kind, chunks)
+    _check_decoder_fuzz()
+    _check_no_kernel_launches()
+
+
+def test_slice_matches_reference_main_path(reference):
+    _load_port()
+    _check_slice_against_reference(*reference)
+    for cls in ("natural", "graphics", "noise"):
+        _check_roundtrip_on_host(cls)
+    _check_host_copies()
+    _check_content_settings_and_state()
+    _check_device_rules()
+    _check_no_kernel_launches()
+
+
+def _check_no_kernel_launches():
+    """Every CPU run went through the plain versions only."""
+    for k in (LZ_EMIT, LZ_DECODE, STITCH, RAW_CHUNKS):
+        assert k.launches == 0, k.name

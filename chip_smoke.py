@@ -16,7 +16,18 @@ Phases, each printing its own line(s):
      parser and pure-Python Snappy codec, and decode to the same pixels as
      the CPU decode of the same words;
   4. times: encode, decode and roundtrip ms per frame and each kernel's ms
-     per launch (CUDA events, synchronised each iteration).
+     per launch (CUDA events, synchronised each iteration);
+  5. where the device time goes (torch.profiler) over three roundtrips.
+The foreign-frame decode path (pipeline/any_frame.py, kernels F and G)
+adds to each phase: 2. F and G against their plain versions on the 64
+google-snappy chunk streams (the port's pyref.compress) of each class's
+4K payload, on their op tables (promote_max 128 and 0), on one 512-chunk
+table launch over an 8-frame graphics GOP, and on hand-made and
+hand-corrupted streams; 3. decode_frame_any_device on both routes over a
+hap.c-layout frame and a non-uniform frame (offset table, shuffled
+storage, uneven sizes, mixed raw/Snappy, 8-byte header) per class, the
+GOP through ForeignGopSession, and a corrupted frame; 4. their times and
+the host stage split; 5. one profiled decode_gop.
 Then one JSON line with the kernels' numbers and, last, the result line.
 Exits nonzero on any failure; without CUDA (or outside a checkout) it
 exits 2 and prints no result.
@@ -30,11 +41,14 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 H, W, CHUNKS = 2160, 3840, 64
 CLASSES = ("natural", "graphics", "noise")
 G = 16
 TIMED_ITERS = 10
+FOREIGN_GOP = 8  # frames of the foreign graphics GOP (bench.py's row)
+ROUTES = ("table", "kernel")
 
 
 class SmokeFailure(Exception):
@@ -102,6 +116,8 @@ def run(torch, dev) -> int:
         decode_lz_streams_from_frame,
         emit_lz_streams,
     )
+    from hap_tpu_torch.snappy.exec_kernels import EXEC_TABLES
+    from hap_tpu_torch.snappy.general_kernels import GENERAL_DECODE
     from hap_tpu_torch.snappy.stream_kernels import (
         RAW_CHUNKS,
         STITCH,
@@ -124,12 +140,15 @@ def run(torch, dev) -> int:
     t0 = time.perf_counter()
     reports = _build.build_all()
     build_s = time.perf_counter() - t0
+    sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    check(len(sources) == 6 and all(_build.library(src) for src in sources),
+          f"expected six CUDA sources built and loaded, found {sources}")
     for src, rep in sorted(reports.items()):
         for ln in rep.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  ptxas {src}: {ln.strip()}", file=sys.stderr)
     print(f"phase 1 build: {len(reports)} CUDA sources compiled in "
-          f"{build_s:.1f} s [{card}]", flush=True)
+          f"{build_s:.1f} s ({', '.join(sources)}) [{card}]", flush=True)
 
     kernels = {"lz_emit": LZ_EMIT, "stitch": STITCH,
                "lz_decode_from_frame": LZ_DECODE,
@@ -142,6 +161,12 @@ def run(torch, dev) -> int:
         "raw_chunks_from_frame": ("raw_chunks.cu",
                                   "hap_tpu/snappy/pallas_kernels.py:465"),
     }
+    foreign_kernels = {"general_decode": GENERAL_DECODE,
+                       "exec_tables": EXEC_TABLES}
+    meta["general_decode"] = ("general_decode.cu",
+                              "hap_tpu/snappy/pallas_general.py:206")
+    meta["exec_tables"] = ("exec_tables.cu",
+                           "hap_tpu/snappy/pallas_exec.py:89")
     stats = {k: {"err": 0, "plain_ms": [], "bytes": []} for k in kernels}
 
     nbytes = dxt_payload_bytes(W, H, G)
@@ -160,6 +185,20 @@ def run(torch, dev) -> int:
     def max_err(a, b):
         d = (a.to(torch.int64) - b.to(torch.int64)).abs()
         return int(d.max()) if d.numel() else 0
+
+    def cuda_ms(fn, iters=TIMED_ITERS):
+        fn()  # warm-up
+        sync()
+        ts = []
+        for _ in range(iters):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            sync()
+            ts.append(a.elapsed_time(b))
+        return statistics.median(ts)
 
     # ---- phase 2: each kernel against its plain version -------------------
     imgs, inputs = {}, {}
@@ -292,6 +331,11 @@ def run(torch, dev) -> int:
           f"size entry != S (chunk {c4}) flagged not-ok by kernels and plain "
           f"versions alike; all {cc - 4} other chunks ok [{card}]",
           flush=True)
+    ctx = types.SimpleNamespace(
+        torch=torch, dev=dev, S=S, cc=cc, check=check, inputs=inputs,
+        stats=stats, host_ms=host_ms, max_err=max_err, cuda_ms=cuda_ms,
+        card=card, hbm=hbm, sync=sync, time=time)
+    foreign_phase2(ctx)
 
     # ---- phase 3: the main path end to end ----------------------------------
     launches = {k: 0 for k in kernels}
@@ -339,22 +383,9 @@ def run(torch, dev) -> int:
               f"{psnr[cls]:.3f} dB, launches {counts} [{card}]", flush=True)
     print(f"phase 3 kernels: launches on the main path over the three frames "
           f"{json.dumps(launches)} [{card}]", flush=True)
+    launches.update(foreign_phase3(ctx))
 
     # ---- phase 4: times -------------------------------------------------------
-    def cuda_ms(fn, iters=TIMED_ITERS):
-        fn()  # warm-up
-        sync()
-        ts = []
-        for _ in range(iters):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            sync()
-            ts.append(a.elapsed_time(b))
-        return statistics.median(ts)
-
     frames = {c: encode_pipeline(imgs[c], "hap_q", CHUNKS, device=dev)[0]
               for c in CLASSES}
     e2e = {
@@ -408,6 +439,8 @@ def run(torch, dev) -> int:
               f"{cls}: the raw-chunk yardstick computes something else")
         per["raw_chunks_from_frame"]["lib"].append(
             cuda_ms(lambda: fpad[ridx]))
+    for name, ms in foreign_phase4(ctx).items():
+        per[name] = {"ms": ms, "lib": []}  # no torch call decodes Snappy
 
     # ---- phase 5: where the device time goes (torch.profiler) -----------
     from torch.profiler import ProfilerActivity, profile
@@ -450,9 +483,10 @@ def run(torch, dev) -> int:
     else:
         print(f"phase 5 profile: the profiler saw no device time [{card}]",
               flush=True)
+    device_ms.update(foreign_profile(ctx, profile, ProfilerActivity))
 
     rows = []
-    for name in kernels:
+    for name in list(kernels) + list(foreign_kernels):
         src, replaces = meta[name]
         ms = statistics.mean(per[name]["ms"])
         lib = per[name]["lib"]
@@ -478,6 +512,439 @@ def run(torch, dev) -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# the foreign-frame decode path: kernels F (general_decode) and G
+# (exec_tables), pipeline/any_frame.py
+# ---------------------------------------------------------------------------
+
+def foreign_profile(ctx, profile, activity):
+    """Device busy and idle share of one decode_gop (the foreign GOP) and of
+    one kernel-route decode; returns device ms per launch of F and G."""
+    from hap_tpu_torch.pipeline.any_frame import decode_frame_any_device
+
+    torch, (sess, staged) = ctx.torch, ctx.f_session
+    windows = (
+        (f"one decode_gop of the {FOREIGN_GOP}-frame foreign GOP",
+         lambda: sess.decode_gop(staged),
+         "exec_tables", "exec_tables_kernel"),
+        ("one kernel-route decode_frame_any_device (graphics)",
+         lambda: decode_frame_any_device(
+             ctx.fi["uniform"]["graphics"], H, W, snappy="kernel",
+             device=ctx.dev),
+         "general_decode", "general_decode_kernel"),
+    )
+    device_ms = {}
+    for label, fn, name, symbol in windows:
+        fn()
+        ctx.sync()
+        with profile(activities=[activity.CPU, activity.CUDA]) as prof:
+            fn()
+            ctx.sync()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not ev:
+            print(f"phase 5 foreign profile ({label}): the profiler saw no "
+                  f"device time [{ctx.card}]", flush=True)
+            continue
+        span = (max(e.time_range.end for e in ev)
+                - min(e.time_range.start for e in ev)) / 1e3
+        busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+        hits = [e for e in ev if symbol in e.name]
+        mine = sum(e.time_range.elapsed_us() for e in hits) / 1e3
+        if hits:
+            device_ms[name] = mine / len(hits)
+        print(f"phase 5 foreign profile ({label}): {len(ev)} device ops, "
+              f"device busy {busy:.3f} ms of a {span:.3f} ms window (idle "
+              f"{100 * (1 - busy / span):.1f}%); {name} {mine:.3f} ms in "
+              f"{len(hits)} launch(es), torch ops {busy - mine:.3f} ms "
+              f"[{ctx.card}]", flush=True)
+    return device_ms
+
+
+def uneven_sizes(total, n):
+    """n chunk sizes around total / n in whole 16-byte blocks, alternately
+    larger and smaller by up to half."""
+    S = total // n
+    sizes = []
+    for i in range(n // 2):
+        d = G * (i % 5) * (S // (8 * G))
+        sizes += [S + d, S - d]
+    sizes[-1] += total - sum(sizes)
+    return sizes
+
+
+def nonuniform_frame(chunks):
+    """A Hap Q frame laid out as hap.c never lays one out: an 8-byte
+    top-level header; decode instructions holding the offset table first,
+    an unknown section, then the compressor and size tables; chunks stored
+    in reverse order. chunks: [(is_snappy, stored bytes)]."""
+    from hap_tpu_torch.constants import (
+        CHUNK_COMPRESSOR_NONE, CHUNK_COMPRESSOR_SNAPPY, COMPRESSOR_COMPLEX,
+        FORMAT_YCOCG_DXT5, SECTION_CHUNK_COMPRESSOR_TABLE,
+        SECTION_CHUNK_OFFSET_TABLE, SECTION_CHUNK_SIZE_TABLE,
+        SECTION_DECODE_INSTRUCTIONS)
+    from hap_tpu_torch.container.serialize import write_section_header as hdr
+
+    comp = bytes(CHUNK_COMPRESSOR_SNAPPY if z else CHUNK_COMPRESSOR_NONE
+                 for z, _ in chunks)
+    sizes = b"".join(len(b).to_bytes(4, "little") for _, b in chunks)
+    order = list(range(len(chunks)))[::-1]
+    offsets, pos = {}, 0
+    for i in order:
+        offsets[i] = pos
+        pos += len(chunks[i][1])
+    table = b"".join(offsets[i].to_bytes(4, "little")
+                     for i in range(len(chunks)))
+    body = (hdr(4, len(table), SECTION_CHUNK_OFFSET_TABLE) + table
+            + hdr(4, 3, 0x7F) + b"xyz"
+            + hdr(4, len(comp), SECTION_CHUNK_COMPRESSOR_TABLE) + comp
+            + hdr(4, len(sizes), SECTION_CHUNK_SIZE_TABLE) + sizes)
+    top = (hdr(4, len(body), SECTION_DECODE_INSTRUCTIONS) + body
+           + b"".join(chunks[i][1] for i in order))
+    return hdr(8, len(top),
+               (COMPRESSOR_COMPLEX << 4) | FORMAT_YCOCG_DXT5) + top
+
+
+def handmade_streams():
+    """[(stream, decoded bytes)]: literals with 1-5 byte headers, and
+    copy-1, copy-2 and copy-4 elements with offsets 1-7 (overlapping
+    copies) and longer."""
+    from hap_tpu_torch.snappy.pyref import write_varint
+
+    out = []
+    for hlen, n in ((1, 40), (2, 200), (3, 5000), (4, 70000), (5, 300)):
+        data = bytes((i * 7 + hlen) & 255 for i in range(n))
+        m = n - 1
+        head = (bytes([m << 2]) if hlen == 1 else
+                bytes([(58 + hlen) << 2]) + m.to_bytes(hlen - 1, "little"))
+        out.append((write_varint(n) + head + data, data))
+    expect = bytearray(range(97, 105))
+    st = bytearray([(len(expect) - 1) << 2]) + expect
+
+    def copy(kind, off, ln):
+        if kind == 1:
+            st.extend([1 | ((ln - 4) << 2) | ((off >> 8) << 5), off & 255])
+        else:
+            st.append(kind | ((ln - 1) << 2))
+            st.extend(off.to_bytes(2 if kind == 2 else 4, "little"))
+        for _ in range(ln):
+            expect.append(expect[-off])
+
+    for off in range(1, 8):
+        copy(1, off, 11)
+        copy(2, off, 64)
+        copy(3, off, 33)
+    copy(1, 700, 9)
+    copy(3, 760, 64)
+    copy(2, 500, 1)
+    out.append((write_varint(len(expect)) + bytes(st), bytes(expect)))
+    return out
+
+
+def corrupt_streams(good, S):
+    """[(name, stream, out_len)] that a decoder must reject; the last three
+    corrupt ``good``, a real stream of S bytes."""
+    from hap_tpu_torch.snappy.pyref import write_varint as v
+
+    lit4 = bytes([3 << 2]) + b"abcd"
+    big = bytearray(good)
+    pre = len(v(S))
+    big[pre: pre + 5] = bytes([63 << 2, 0xFF, 0xFF, 0xFF, 0xFE])
+    return [
+        ("offset 0", v(8) + lit4 + bytes([2 | (3 << 2), 0, 0]), 8),
+        ("offset > produced", v(8) + lit4 + bytes([2 | (3 << 2), 5, 0]), 8),
+        ("copy past out_len", v(8) + lit4 + bytes([2 | (7 << 2), 4, 0]), 8),
+        ("literal past the stream end", v(8) + bytes([7 << 2]) + b"abcd", 8),
+        ("bad preamble", b"\xff" * 6 + b"aaaa", 4),
+        ("preamble != out_len", v(9) + bytes([7 << 2]) + b"abcdefgh", 8),
+        ("trailing bytes", v(4) + lit4 + b"\x00", 4),
+        ("5-byte literal header, huge length",
+         v(8) + bytes([63 << 2, 0xFF, 0xFF, 0xFF, 0xFF]) + b"abcdefgh", 8),
+        ("literal of 2^31 - 9 bytes", v(64) + bytes([11 << 2]) + bytes(12)
+         + bytes([63 << 2, 0xF6, 0xFF, 0xFF, 0x7F]) + bytes(40), 64),
+        ("real stream, huge literal", bytes(big), S),
+        ("real stream, truncated", good[:-1], S),
+        ("real stream, trailing byte", good + b"\x00", S),
+    ]
+
+
+def stream_rows(torch, streams, out_lens, dev):
+    """Streams -> kernel F's (C, B) rows, comp_len and out_len on dev."""
+    import numpy as np
+
+    B = max([len(s) for s in streams] + [1])
+    rows = np.zeros((len(streams), B), np.uint8)
+    for i, st in enumerate(streams):
+        rows[i, :len(st)] = np.frombuffer(st, np.uint8)
+    i32 = torch.int32
+    return (torch.from_numpy(rows).to(dev),
+            torch.tensor([len(st) for st in streams], dtype=i32, device=dev),
+            torch.tensor(list(out_lens), dtype=i32, device=dev))
+
+
+def foreign_inputs(ctx):
+    """Host-side frames of the foreign path: per class the 64 chunk streams
+    of the 4K payload, a hap.c-layout frame and a non-uniform frame; the
+    8-frame graphics GOP; a corrupted frame."""
+    import numpy as np
+
+    from hap_tpu_torch.container.parse import parse_frame
+    from hap_tpu_torch.container.serialize import serialize_texture
+    from hap_tpu_torch.content import make_frame
+    from hap_tpu_torch.kernels.layout import words_to_payload
+    from hap_tpu_torch.pipeline.device_pipeline import encode_blocks
+    from hap_tpu_torch.snappy import pyref
+
+    torch, dev, S, cc = ctx.torch, ctx.dev, ctx.S, ctx.cc
+    t0 = ctx.time.perf_counter()
+    fi = {"payload": {}, "streams": {}, "uniform": {}, "nonuniform": {}}
+    for cls in CLASSES:
+        pay = ctx.inputs[cls]["payload"].cpu().numpy().tobytes()
+        streams = [pyref.compress(pay[c * S:(c + 1) * S]) for c in range(cc)]
+        fi["payload"][cls] = pay
+        fi["streams"][cls] = streams
+        fi["uniform"][cls] = serialize_texture(pay, True, cc,
+                                               precompressed=streams)
+        chunks, o = [], 0
+        for k, n in enumerate(uneven_sizes(len(pay), cc)):
+            part = pay[o:o + n]
+            o += n
+            st = pyref.compress(part) if k % 5 != 2 else part
+            chunks.append((k % 5 != 2 and len(st) < n,
+                           st if len(st) < n else part))
+        fi["nonuniform"][cls] = nonuniform_frame(chunks)
+    fi["gop_payloads"], fi["gop_streams"], fi["gop"] = [], [], []
+    for k in range(FOREIGN_GOP):
+        img = torch.from_numpy(make_frame("graphics", k, H, W)).to(dev)
+        pay = words_to_payload(encode_blocks(img)).cpu().numpy().tobytes()
+        streams = [pyref.compress(pay[c * S:(c + 1) * S]) for c in range(cc)]
+        fi["gop_payloads"].append(pay)
+        fi["gop_streams"].append(streams)
+        fi["gop"].append(serialize_texture(pay, True, cc,
+                                           precompressed=streams))
+    # corrupted: the first element of graphics chunk 0 becomes a literal
+    # whose 5-byte header claims ~4 GB
+    bad = bytearray(fi["uniform"]["graphics"])
+    tex = parse_frame(bytes(bad)).textures[0]
+    ctx.check(tex.chunk_compressors[0] == 0x0B, "graphics chunk 0 is raw")
+    a = int(tex.chunk_compressed_offsets[0]) + len(pyref.write_varint(S))
+    bad[a:a + 5] = bytes([63 << 2, 0xFF, 0xFF, 0xFF, 0xFE])
+    fi["corrupted"] = bytes(bad)
+    build_s = ctx.time.perf_counter() - t0
+    desc = []
+    for cls in CLASSES:
+        u = parse_frame(fi["uniform"][cls]).textures[0]
+        nu = parse_frame(fi["nonuniform"][cls]).textures[0]
+        desc.append(
+            f"{cls}: hap.c layout {len(fi['uniform'][cls])} B "
+            f"({int((u.chunk_compressors == 0x0B).sum())} of {cc} Snappy), "
+            f"non-uniform {len(fi['nonuniform'][cls])} B "
+            f"({int((nu.chunk_compressors == 0x0B).sum())} Snappy, chunk "
+            f"sizes {int(nu.chunk_uncompressed_sizes.min())}-"
+            f"{int(nu.chunk_uncompressed_sizes.max())})")
+    print(f"phase 2 foreign inputs: {'; '.join(desc)}; graphics GOP of "
+          f"{FOREIGN_GOP} frames {sum(map(len, fi['gop']))} B; built on the "
+          f"host (pure-Python Snappy) in {build_s:.1f} s", flush=True)
+    ctx.fi = fi
+    return fi
+
+
+def foreign_phase2(ctx):
+    """Kernels F and G against their plain versions at 4K."""
+    from hap_tpu_torch.snappy import pyref
+    from hap_tpu_torch.snappy.exec_kernels import execute_op_tables
+    from hap_tpu_torch.snappy.general_kernels import decode_any_streams
+    from hap_tpu_torch.snappy.optable import pack_tables
+
+    torch, dev, S, cc, check = ctx.torch, ctx.dev, ctx.S, ctx.cc, ctx.check
+    fi = foreign_inputs(ctx)
+    st = ctx.stats
+    st["general_decode"] = {"err": 0, "plain_ms": [], "bytes": []}
+    st["exec_tables"] = {"err": 0, "plain_ms": [], "bytes": []}
+    ctx.f_in, ctx.g_in = {}, {}
+
+    def run_f(streams, out_lens, S_max):
+        rows = stream_rows(torch, streams, out_lens, dev)
+        out, ok = decode_any_streams(*rows, S_max)
+        rows_c = tuple(t.cpu() for t in rows)
+        (out_p, ok_p), ms = ctx.host_ms(
+            lambda: decode_any_streams(*rows_c, S_max))
+        err = ctx.max_err(out.cpu(), out_p)
+        st["general_decode"]["err"] = max(st["general_decode"]["err"], err)
+        check(err == 0 and torch.equal(ok.cpu(), ok_p),
+              "general_decode != plain")
+        return rows, out_p, ok_p, ms
+
+    def run_g(p, S_max):
+        args = (p.ops.to(dev), p.n_ops.to(dev), p.lit.to(dev),
+                p.out_len.to(dev))
+        out = execute_op_tables(*args, S_max)
+        out_p, ms = ctx.host_ms(lambda: execute_op_tables(
+            p.ops, p.n_ops, p.lit, p.out_len, S_max))
+        live = torch.arange(S_max)[None, :] < p.out_len[:, None]
+        err = ctx.max_err(out.cpu()[live], out_p[live])
+        st["exec_tables"]["err"] = max(st["exec_tables"]["err"], err)
+        check(err == 0, "exec_tables != plain")
+        return args, out_p, ms
+
+    def g_bytes(p):
+        return (8 * int(p.n_ops.sum()) + int(p.n_lit.sum())
+                + int(p.out_len.sum()) + 12 * p.n_ops.shape[0])
+
+    for cls in CLASSES:
+        streams, pay = fi["streams"][cls], fi["payload"][cls]
+        rows, out_p, ok_p, ms = run_f(streams, [S] * cc, S)
+        check(bool(ok_p.all()) and out_p.numpy().tobytes() == pay,
+              f"{cls}: general_decode does not decode the payload")
+        st["general_decode"]["plain_ms"].append(ms)
+        st["general_decode"]["bytes"].append(
+            sum(map(len, streams)) + cc * S + 9 * cc)
+        ctx.f_in[cls] = rows
+        pieces = {}
+        for pm in (128, 0):
+            p = pack_tables(streams, [S] * cc, S_max=S, promote_max=pm)
+            check(bool(p.ok.all()), f"{cls}: op-table compile rejected")
+            args, out_p, ms = run_g(p, S)
+            check(out_p.numpy().tobytes() == pay,
+                  f"{cls}: exec_tables does not decode the payload")
+            pieces[pm] = (int(p.n_ops.sum()), int(p.n_lit.sum()))
+            if pm == 128:  # the route's default tables
+                st["exec_tables"]["plain_ms"].append(ms)
+                st["exec_tables"]["bytes"].append(g_bytes(p))
+                ctx.g_in[cls] = args
+        print(f"phase 2 foreign {cls}: general_decode and exec_tables equal "
+              f"their plain versions on all {cc} streams "
+              f"({sum(map(len, streams))} B) and decode the payload; tables "
+              f"promote_max 128: {pieces[128][0]} pieces, {pieces[128][1]} "
+              f"literal B; promote_max 0: {pieces[0][0]} pieces, "
+              f"{pieces[0][1]} literal B [{ctx.card}]", flush=True)
+
+    # one table launch over the N x C chunks of the graphics GOP
+    streams = [x for sl in fi["gop_streams"] for x in sl]
+    p = pack_tables(streams, [S] * len(streams), S_max=S)
+    args, out_p, ms = run_g(p, S)
+    check(out_p.numpy().tobytes() == b"".join(fi["gop_payloads"]),
+          "GOP: exec_tables does not decode the payloads")
+    ctx.g_gop = (args, g_bytes(p), ms)
+    print(f"phase 2 foreign GOP: one exec_tables launch over "
+          f"{len(streams)} chunks ({FOREIGN_GOP} frames, {int(p.n_ops.sum())} "
+          f"pieces) equals its plain version and decodes all payloads "
+          f"(plain {ms:.0f} ms) [{ctx.card}]", flush=True)
+
+    # hand-made and hand-corrupted streams
+    made = handmade_streams()
+    _, out_p, ok_p, _ = run_f([m[0] for m in made], [len(m[1]) for m in made],
+                              max(len(m[1]) for m in made))
+    for i, (stream, data) in enumerate(made):
+        check(bool(ok_p[i]) and out_p[i, :len(data)].numpy().tobytes() == data
+              and pyref.decompress(stream, len(data)) == data,
+              f"hand-made stream {i} does not decode")
+    bad = corrupt_streams(fi["streams"]["graphics"][0], S)
+    _, out_p, ok_p, _ = run_f([b[1] for b in bad], [b[2] for b in bad], S)
+    for i, (name, stream, n) in enumerate(bad):
+        check(not bool(ok_p[i]), f"corrupt stream not flagged: {name}")
+        try:
+            pyref.decompress(stream, n)
+            check(False, f"pyref accepts the corrupt stream: {name}")
+        except ValueError:
+            pass
+    print(f"phase 2 foreign streams: {len(made)} hand-made streams (1-5 byte "
+          f"literal headers, copy-1/2/4, offsets 1-7) decode; {len(bad)} "
+          f"corrupt streams ({', '.join(b[0] for b in bad)}) flagged not-ok "
+          f"by general_decode and its plain version alike, as pyref rejects "
+          f"them [{ctx.card}]", flush=True)
+
+
+def foreign_phase3(ctx):
+    """The foreign path end to end; returns F's and G's launch counts."""
+    import numpy as np
+
+    from hap_tpu_torch.pipeline.any_frame import (
+        ForeignGopSession, decode_frame_any_device)
+    from hap_tpu_torch.pipeline.device_pipeline import decode_blocks
+    from hap_tpu_torch.snappy.exec_kernels import EXEC_TABLES
+    from hap_tpu_torch.snappy.general_kernels import GENERAL_DECODE
+
+    torch, dev, check, fi = ctx.torch, ctx.dev, ctx.check, ctx.fi
+
+    def ref_pixels(pay):
+        words = torch.from_numpy(np.frombuffer(pay, np.int32).copy()).to(dev)
+        return decode_blocks(words, H, W)
+
+    for k in (GENERAL_DECODE, EXEC_TABLES):
+        k.launches = 0
+    for cls in CLASSES:
+        ref = ref_pixels(fi["payload"][cls])
+        for layout in ("uniform", "nonuniform"):
+            for route in ROUTES:
+                pix, ok = decode_frame_any_device(
+                    fi[layout][cls], H, W, snappy=route, device=dev)
+                check(bool(ok) and torch.equal(pix, ref),
+                      f"{cls} {layout} frame, {route} route: wrong decode")
+    sess = ForeignGopSession(H, W, device=dev)
+    staged = [sess.stage(f) for f in fi["gop"]]
+    pix, ok = sess.decode_gop(staged)
+    check(bool(ok.all()), "foreign GOP: ok is False")
+    for k, pay in enumerate(fi["gop_payloads"]):
+        check(torch.equal(pix[k], ref_pixels(pay)),
+              f"foreign GOP frame {k}: wrong pixels")
+    for route in ROUTES:
+        _, ok = decode_frame_any_device(fi["corrupted"], H, W, snappy=route,
+                                        device=dev)
+        check(not bool(ok), f"corrupted frame not flagged on {route} route")
+    ctx.sync()
+    counts = {"general_decode": GENERAL_DECODE.launches,
+              "exec_tables": EXEC_TABLES.launches}
+    check(all(v > 0 for v in counts.values()),
+          f"a kernel was not launched on the foreign path: {counts}")
+    print(f"phase 3 foreign: hap.c-layout and non-uniform 4K frames of all "
+          f"three classes decode on both routes to the pixels of "
+          f"decode_blocks of their payloads; the {FOREIGN_GOP}-frame graphics "
+          f"GOP through ForeignGopSession likewise; the corrupted frame "
+          f"flagged on both routes; launches {json.dumps(counts)} "
+          f"[{ctx.card}]", flush=True)
+    ctx.f_session = (sess, staged)
+    return counts
+
+
+def foreign_phase4(ctx):
+    """Times of the foreign path and of kernels F and G."""
+    from hap_tpu_torch.pipeline.any_frame import decode_frame_any_device
+    from hap_tpu_torch.snappy.exec_kernels import execute_op_tables
+    from hap_tpu_torch.snappy.general_kernels import decode_any_streams
+
+    fi, dev, S = ctx.fi, ctx.dev, ctx.S
+    for route, iters in (("table", 3), ("kernel", TIMED_ITERS)):
+        ms = [ctx.cuda_ms(lambda: decode_frame_any_device(
+            fi["uniform"][c], H, W, snappy=route, device=dev), iters)
+            for c in CLASSES]
+        print(f"phase 4 foreign decode_frame_any_device, {route} route: "
+              + ", ".join(f"{c} {m:.3f} ms" for c, m in zip(CLASSES, ms))
+              + f" per frame (hap.c layout; host parse"
+              + (" and op-table compile" if route == "table" else "")
+              + f" included) [{ctx.card}]", flush=True)
+    sess, staged = ctx.f_session
+    split = {k: statistics.mean(s.stage_ms[k] for s in staged)
+             for k in ("parse", "compile", "upload")}
+    gop_ms = ctx.cuda_ms(lambda: sess.decode_gop(staged)) / len(staged)
+    print(f"phase 4 foreign GOP: stage host ms per frame "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+          + f"; decode_gop {gop_ms:.3f} ms per frame over {len(staged)} "
+          f"frames [{ctx.card}]", flush=True)
+    per = {"general_decode": [], "exec_tables": []}
+    for cls in CLASSES:
+        per["general_decode"].append(ctx.cuda_ms(
+            lambda: decode_any_streams(*ctx.f_in[cls], S)))
+        per["exec_tables"].append(ctx.cuda_ms(
+            lambda: execute_op_tables(*ctx.g_in[cls], S)))
+    args, nbytes, plain = ctx.g_gop
+    gop_launch = ctx.cuda_ms(lambda: execute_op_tables(*args, S))
+    print(f"phase 4 foreign exec_tables GOP launch ({args[0].shape[0]} "
+          f"chunks): {gop_launch:.4f} ms; bound {nbytes / ctx.hbm * 1e3:.4f} "
+          f"ms; plain (host CPU) {plain:.0f} ms [{ctx.card}]", flush=True)
+    return per
 
 
 if __name__ == "__main__":

@@ -13,6 +13,18 @@ COMPRESSOR_COMPLEX = 0xC
 
 FORMAT_YCOCG_DXT5 = 0xF  # Hap Q's stored format nibble
 
+# Stored format nibble -> texture format name, for every format the
+# container knows (only YCoCg_DXT5 is decoded by the port so far).
+FORMAT_NAMES = {
+    0xB: "RGB_DXT1",
+    0xE: "RGBA_DXT5",
+    0xF: "YCoCg_DXT5",
+    0x1: "A_RGTC1",
+    0xC: "RGBA_BPTC_UNORM",
+    0x2: "RGB_BPTC_UNSIGNED_FLOAT",
+    0x3: "RGB_BPTC_SIGNED_FLOAT",
+}
+
 SECTION_MULTIPLE_IMAGES = 0x0D
 SECTION_DECODE_INSTRUCTIONS = 0x01
 SECTION_CHUNK_COMPRESSOR_TABLE = 0x02

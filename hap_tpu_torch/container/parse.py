@@ -1,12 +1,14 @@
 """Host-side frame parsing: Hap bytes -> per-texture chunk tables.
 
-A copy of the reference package's parser, kept to what checking the port's
-frames needs: the section-header walk (including multi-image frames), the
-decode-instruction tables of a Complex section, and the whole-section
-Snappy and None compressors. Validation follows the reference decoder: a
-section may not extend past its buffer, the instruction tables must agree
-on the chunk count, unknown chunk compressors and chunks past the buffer
-are Bad_Frame.
+A copy of the reference package's parser for any legal frame: the
+section-header walk (4- and 8-byte headers, multi-image frames), the
+decode-instruction tables of a Complex section in any section order
+(unknown sections skipped, an optional chunk offset table, so chunks may be
+stored in any order), and the whole-section Snappy and None compressors.
+Validation follows the reference decoder: a section may not extend past its
+buffer, the instruction tables must agree on the chunk count, and unknown
+texture formats, unknown chunk compressors and chunks past the buffer are
+Bad_Frame.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from hap_tpu_torch.constants import (
     COMPRESSOR_COMPLEX,
     COMPRESSOR_NONE,
     COMPRESSOR_SNAPPY,
+    FORMAT_NAMES,
     SECTION_CHUNK_COMPRESSOR_TABLE,
     SECTION_CHUNK_OFFSET_TABLE,
     SECTION_CHUNK_SIZE_TABLE,
@@ -127,10 +130,16 @@ def _plan_texture(data, body_offset: int, body_length: int,
                   section_type: int) -> TexturePlan:
     compressor = section_type >> 4
     fmt = section_type & 0xF
+    if fmt not in FORMAT_NAMES:
+        raise HapError(f"unknown texture format id {fmt:#x}")
     view = memoryview(data)
     if compressor == COMPRESSOR_COMPLEX:
         n, comps, sizes, offs, data_off = _parse_decode_instructions(
             data, body_offset, body_length)
+        if n == 0:
+            z = np.zeros(0, np.int64)
+            return TexturePlan(fmt, compressor, 0, np.zeros(0, np.uint8),
+                               z, z, z, z, 0)
         comps = np.ascontiguousarray(comps[:n])
         sizes = np.ascontiguousarray(sizes[:n])
         bad = (comps != CHUNK_COMPRESSOR_SNAPPY) & (comps != CHUNK_COMPRESSOR_NONE)

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from hap_tpu_torch.snappy.device_lz import LzPlan
+from hap_tpu_torch.snappy.optable import PackedTables
 
 # effort -> (BC1 refine rounds, endpoint candidate search)
 _EFFORT = {"best": (2, True), "high": (2, False), "fast": (1, False)}
@@ -43,3 +44,17 @@ def lz_plan_from_numpy(tables_lit, tables_copy, counts, comp_len, n_pieces,
 def words_from_numpy(words, device="cpu") -> torch.Tensor:
     """uint32 payload words -> the port's int32 words (same bits)."""
     return _i32(words, device)
+
+
+def packed_tables_from_numpy(p, device="cpu") -> PackedTables:
+    """The reference compiler's PackedTables (numpy fields) -> the port's
+    PackedTables (tensors), so kernel G can replay the reference's own
+    tables."""
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to(
+            device)
+
+    return PackedTables(ops=_i32(p.ops, device), n_ops=_i32(p.n_ops, device),
+                        lit=t(p.lit, np.uint8), n_lit=_i32(p.n_lit, device),
+                        out_len=_i32(p.out_len, device), ok=t(p.ok, np.bool_),
+                        S_max=int(p.S_max))

@@ -15,7 +15,16 @@ seeds with numpy):
 * the slice: the reference's own main path (encode_pipeline and
   decode_pipeline, Pallas kernels in interpret mode) runs once on a 64x128
   frame; the port rebuilds its frame bytes from its words, decodes its
-  frame bit-exactly, and encodes the pixels to the same BC4 words.
+  frame bit-exactly, and encodes the pixels to the same BC4 words;
+* the foreign-frame path: the port's Snappy compressor byte-identical to
+  the reference's; its op tables equal the reference compiler's field by
+  field; kernel G's plain version on the reference's own tables equals
+  the reference's scalar executor, and kernel F's equals the reference's
+  pure-Python decoder in bytes and verdict, on hand-made, corrupt and
+  fuzzed streams; encoder frames and non-uniform foreign frames (offset
+  table, shuffled storage, uneven and mixed raw/Snappy chunks) decode on
+  both routes and through ForeignGopSession to exactly the pixels of the
+  reference's host decode (codecs.decode_frame).
 
 The CUDA kernels themselves are held against these plain versions on the
 GPU by ``chip_smoke.py``.
@@ -48,8 +57,11 @@ from hap_tpu.kernels import bc1 as j1
 from hap_tpu.kernels import bc4 as j4
 from hap_tpu.kernels import layout as jl
 from hap_tpu.kernels import ycocg as jy
+from hap_tpu.pipeline import any_frame as jany
+from hap_tpu.pipeline import codecs as jcodecs
 from hap_tpu.pipeline import device_pipeline as jpipe
 from hap_tpu.snappy import device_lz as jlz
+from hap_tpu.snappy import optable as ref_optable
 from hap_tpu.snappy import pyref as ref_pyref
 from tools import bench_content
 
@@ -73,10 +85,18 @@ def _load_port():
     from hap_tpu_torch.pipeline.device_pipeline import (
         decode_pipeline, encode_blocks, encode_pipeline, encode_words,
         roundtrip_pipeline)
+    from hap_tpu_torch.pipeline.any_frame import (
+        ForeignGopSession, decode_frame_any, decode_frame_any_device)
     from hap_tpu_torch.reference_state import (
-        encode_settings, lz_plan_from_numpy, words_from_numpy)
+        encode_settings, lz_plan_from_numpy, packed_tables_from_numpy,
+        words_from_numpy)
     from hap_tpu_torch.snappy import device_lz as tlz
+    from hap_tpu_torch.snappy import optable
     from hap_tpu_torch.snappy import pyref
+    from hap_tpu_torch.snappy.exec_kernels import (
+        EXEC_TABLES, execute_op_tables)
+    from hap_tpu_torch.snappy.general_kernels import (
+        GENERAL_DECODE, decode_any_streams)
     from hap_tpu_torch.snappy.lz_kernels import (
         LZ_DECODE, LZ_EMIT, decode_lz_streams_from_frame, emit_lz_streams)
     from hap_tpu_torch.snappy.stream_kernels import (
@@ -521,6 +541,189 @@ def _check_decoder_fuzz():
 
 
 # ---------------------------------------------------------------------------
+# the foreign-frame path: Snappy compressor, op tables, kernels F and G
+# ---------------------------------------------------------------------------
+
+FOREIGN_SIZES = (1, 127, 128, 129, 4096, 12960)
+
+
+def _foreign_payload(kind, n, rng):
+    if kind == "random":
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    if kind == "flat":
+        return bytes([int(rng.integers(0, 256))]) * n
+    out = np.tile(rng.integers(0, 256, 48, dtype=np.uint8), n // 48 + 1)[:n]
+    out[n // 2:] = rng.integers(0, 4, n - n // 2)  # short-offset repeats
+    return out.tobytes()
+
+
+def _handmade_streams():
+    """(stream, decoded): 2-5 byte literal headers; copy-1, copy-2 and
+    copy-4 elements with offsets 1-7 (overlapping) and longer."""
+    out = []
+    for hlen, n in ((2, 200), (3, 5000), (4, 300), (5, 70)):
+        data = bytes((i * 7 + hlen) & 255 for i in range(n))
+        out.append((pyref.write_varint(n) + bytes([(58 + hlen) << 2])
+                    + (n - 1).to_bytes(hlen - 1, "little") + data, data))
+    expect = bytearray(range(97, 105))
+    st = bytearray([7 << 2]) + expect
+    for kind, off, ln in ([(k, d, n) for d in range(1, 8)
+                           for k, n in ((1, 11), (2, 64), (3, 33))]
+                          + [(1, 700, 9), (3, 760, 64), (2, 500, 1)]):
+        if kind == 1:
+            st += bytes([1 | ((ln - 4) << 2) | ((off >> 8) << 5), off & 255])
+        else:
+            st += bytes([kind | ((ln - 1) << 2)]) + off.to_bytes(
+                2 if kind == 2 else 4, "little")
+        for _ in range(ln):
+            expect.append(expect[-off])
+    out.append((pyref.write_varint(len(expect)) + bytes(st), bytes(expect)))
+    return out
+
+
+def _corrupt_streams():
+    """(stream, expected length) the general decoders must reject: the
+    malformed cases of tests/test_snappy_general.py and the rules' edges."""
+    v = ref_pyref.write_varint
+    good = ref_pyref.compress(bytes(range(200)) * 3)
+    lit4 = bytes([3 << 2]) + b"abcd"
+    return [
+        (good[: len(good) // 2], 600),  # truncated
+        (v(400) + good[len(v(600)):], 600),  # preamble != expected
+        (v(8) + lit4 + bytes([2 | (3 << 2), 0, 0]), 8),  # offset 0
+        (v(8) + lit4 + bytes([2 | (3 << 2), 200, 0]), 8),  # past produced
+        (v(8) + lit4 + bytes([1, 5]), 8),  # copy-1, offset = produced + 1
+        (v(8) + lit4 + bytes([3 | (7 << 2), 4, 0, 0, 0]), 8),  # past out_len
+        (v(4) + bytes([7 << 2]) + b"abcdefgh", 4),  # literal past out_len
+        (v(8) + bytes([7 << 2]) + b"abcd", 8),  # literal past stream end
+        (v(4) + lit4 + b"\xff\xff", 4),  # trailing bytes
+        (b"\xff" * 6 + b"aaaa", 4),  # varint never terminates
+        (b"\x80\x80\x80\x80\x80\x01", 4),  # 6-byte varint
+        (b"", 4),  # empty
+        (v(8) + bytes([63 << 2, 0xFF, 0xFF, 0xFF, 0xFF]) + b"abcdefgh", 8),
+        # length 2^31 - 9: the sums wrap in int32 (ROADMAP queue 3)
+        (v(64) + bytes([11 << 2]) + bytes(12)
+         + bytes([63 << 2, 0xF6, 0xFF, 0xFF, 0x7F]) + bytes(40), 64),
+        (v(8) + bytes([62 << 2, 0xFF, 0xFF]), 8),  # truncated header
+        (v(8) + lit4 + bytes([2 | (3 << 2), 4]), 8),  # truncated copy-2
+    ]
+
+
+def _foreign_streams():
+    """Streams of the module checks with their expected lengths: the
+    port's compressor on random, flat and structured payloads at every
+    FOREIGN_SIZES, hand-made streams, corrupt streams, and single-byte
+    corruptions of a few of them."""
+    rng = np.random.default_rng(21)
+    streams, lens = [], []
+    for n in FOREIGN_SIZES:
+        for kind in ("random", "flat", "structured"):
+            streams.append(pyref.compress(_foreign_payload(kind, n, rng)))
+            lens.append(n)
+    for st, data in _handmade_streams():
+        streams.append(st)
+        lens.append(len(data))
+    for st, n in _corrupt_streams():
+        streams.append(st)
+        lens.append(n)
+    for i in (5, 12, 14, 18):
+        for _ in range(8):
+            b = bytearray(streams[i])
+            b[int(rng.integers(0, len(b)))] ^= int(rng.integers(1, 256))
+            streams.append(bytes(b))
+            lens.append(lens[i])
+    return streams, lens
+
+
+def _check_compressor_matches_reference():
+    rng = np.random.default_rng(22)
+    for n in (0, 14, 15, 1000, 65536, 70001):
+        for kind in ("random", "flat", "structured"):
+            data = _foreign_payload(kind, n, rng) if n else b""
+            mine = pyref.compress(data)
+            assert mine == ref_pyref.compress(data), (kind, n)
+            assert ref_pyref.decompress(mine, n) == data
+    assert pyref.write_varint(129600) == bytes([0xC0, 0xF4, 0x07])
+
+
+def _check_op_tables_match_reference(streams, lens):
+    for pm in (0, 128):
+        mine = optable.pack_tables(streams, lens, promote_max=pm)
+        ref = ref_optable.pack_tables(streams, lens, prefer_native=False,
+                                      promote_max=pm)
+        for f in ("ops", "n_ops", "lit", "n_lit", "out_len", "ok"):
+            np.testing.assert_array_equal(getattr(mine, f).numpy(),
+                                          getattr(ref, f), err_msg=f)
+        assert mine.S_max == ref.S_max
+    for st, n in zip(streams, lens):
+        assert (optable.build_op_table(st, n) is None) == (
+            ref_optable.build_op_table(st, n) is None)
+    with pytest.raises(ValueError):
+        optable.execute_table_host(optable.OpTable(
+            np.array([[4, 2]], np.int32), np.zeros(0, np.uint8), 4))
+
+
+def _check_exec_plain_on_reference_tables(streams, lens):
+    """Kernel G's plain version replays the reference compiler's own
+    tables as the reference's scalar executor does."""
+    S = max(lens) + (-max(lens)) % 4  # word output needs whole words
+    for pm, words in ((0, False), (128, True)):
+        p = packed_tables_from_numpy(ref_optable.pack_tables(
+            streams, lens, prefer_native=False, promote_max=pm, S_max=S))
+        out = execute_op_tables(p.ops, p.n_ops, p.lit, p.out_len, S,
+                                out_words=words)
+        assert out.shape == ((len(streams), S // 4) if words
+                             else (len(streams), S))
+        out = out.view(torch.uint8).numpy() if words else out.numpy()
+        for c, (st, n) in enumerate(zip(streams, lens)):
+            t = ref_optable.build_op_table(st, n, promote_max=pm)
+            if t is None:
+                assert not p.ok[c] and int(p.n_ops[c]) == 0
+                assert not out[c].any()  # rejected rows come out zero
+                continue
+            want = ref_optable.execute_table_host(t)
+            assert out[c, :n].tobytes() == want, (pm, c)
+            assert not out[c, n:].any()
+            assert optable.execute_table_host(t) == want
+
+
+def _check_general_plain_matches_pyref(streams, lens):
+    """Kernel F's plain version: bytes and verdict of the reference's
+    pure-Python decoder (expected_length = out_len <= S_max)."""
+    S_max = max(lens)
+    B = max(len(st) for st in streams)
+    rows = np.zeros((len(streams), B), np.uint8)
+    for i, st in enumerate(streams):
+        rows[i, :len(st)] = np.frombuffer(st, np.uint8)
+    out, ok = decode_any_streams(
+        torch.from_numpy(rows), torch.tensor([len(st) for st in streams],
+                                             dtype=torch.int32),
+        torch.tensor(lens, dtype=torch.int32), S_max)
+    bad = 0
+    for c, (st, n) in enumerate(zip(streams, lens)):
+        try:
+            want = ref_pyref.decompress(st, expected_length=n)
+        except RefHapError:
+            want = None
+        assert bool(ok[c]) == (want is not None), c
+        if want is None:
+            bad += 1
+            continue
+        assert out[c, :n].numpy().tobytes() == want
+        assert not out[c, n:].any()
+    assert bad >= len(_corrupt_streams())
+    # a stream longer than its row reads zeros past the row; an out_len
+    # above S_max is rejected
+    st = pyref.compress(bytes(300))
+    one = torch.from_numpy(np.frombuffer(st, np.uint8).copy())[None]
+    for clen, ulen, S in ((len(st), 300, 300), (len(st) + 4, 300, 300),
+                          (len(st), 300, 299)):
+        o, k = decode_any_streams(one, torch.tensor([clen], dtype=torch.int32),
+                                  torch.tensor([ulen], dtype=torch.int32), S)
+        assert bool(k[0]) == (clen == len(st) and S >= ulen)
+
+
+# ---------------------------------------------------------------------------
 # the slice as a whole
 # ---------------------------------------------------------------------------
 
@@ -669,6 +872,12 @@ def test_port_modules_match_reference(reference_plan):
     _check_stitch()
     _check_raw_chunks()
 
+    streams, lens = _foreign_streams()
+    _check_compressor_matches_reference()
+    _check_op_tables_match_reference(streams, lens)
+    _check_exec_plain_on_reference_tables(streams, lens)
+    _check_general_plain_matches_pyref(streams, lens)
+
     _check_no_kernel_launches()
     jax.clear_caches()  # this test's own compiles, as the fixture's
 
@@ -689,10 +898,97 @@ def test_slice_matches_reference_main_path(reference):
     _check_host_copies()
     _check_content_settings_and_state()
     _check_device_rules()
+    _check_foreign_frames()
     _check_no_kernel_launches()
+    jax.clear_caches()  # the reference codec's compiles, as the fixture's
+
+
+def _foreign_frames():
+    """64x128 Hap Q frames: the reference encoder's (chunk_count=4), a
+    non-uniform one (offset table, shuffled storage, uneven sizes, mixed
+    raw/Snappy), and a corrupted copy of the encoder's frame; with the
+    reference host decode of the first."""
+    from tests.test_container import _build_complex_frame_with_offsets
+
+    img = make_frame("graphics", 5, H, W)
+    enc = jcodecs.encode_frame(jnp.asarray(img), "hap_q", chunk_count=4)
+    ref = np.asarray(jcodecs.decode_frame(enc, H, W))
+    tex = ref_parse_frame(enc).textures[0]
+    assert tex.chunk_count == 4 and (tex.chunk_compressors == 0x0B).all()
+    payload = b"".join(
+        ref_pyref.decompress(enc[a: a + n])
+        for a, n in zip(tex.chunk_compressed_offsets.tolist(),
+                        tex.chunk_compressed_sizes.tolist()))
+    chunks, o = [], 0
+    for k, n in enumerate((1024, 3072, 512, 2048, len(payload) - 6656)):
+        part = payload[o: o + n]
+        o += n
+        chunks.append({"snappy": k % 2 == 0,
+                       "payload": ref_pyref.compress(part) if k % 2 == 0
+                       else part})
+    nonu = _build_complex_frame_with_offsets(chunks, fmt_id=0xF, shuffle=True)
+    bad = bytearray(enc)  # chunk 2's first element: a ~4 GB literal
+    a = int(tex.chunk_compressed_offsets[2]) + len(
+        ref_pyref.write_varint(int(tex.chunk_uncompressed_sizes[2])))
+    bad[a: a + 5] = bytes([63 << 2, 0xFF, 0xFF, 0xFF, 0xFE])
+    return enc, nonu, bytes(bad), ref
+
+
+def _check_foreign_frames():
+    enc, nonu, bad, ref = _foreign_frames()
+    np.testing.assert_array_equal(jcodecs.decode_frame(nonu, H, W), ref)
+    for route in ("table", "kernel"):
+        for fr in (enc, nonu):
+            pix, ok = decode_frame_any_device(fr, H, W, snappy=route,
+                                              device="cpu")
+            assert bool(ok) and pix.dtype == torch.uint8
+            np.testing.assert_array_equal(pix.numpy(), ref)
+        _, ok = decode_frame_any_device(bad, H, W, snappy=route, device="cpu")
+        assert not bool(ok)
+        pix, ok = decode_frame_any(nonu, H, W, snappy=route, device="cpu")
+        assert ok and np.array_equal(pix, ref)
+    with pytest.raises(NotImplementedError):
+        decode_frame_any(enc, H, W, via="native", device="cpu")
+    with pytest.raises(ValueError):
+        decode_frame_any_device(enc, H, W, snappy="general", device="cpu")
+    with pytest.raises(HapError):  # dims that do not match the texture
+        decode_frame_any_device(enc, H, W * 2, device="cpu")
+    other = serialize_texture(bytes(H * W // 2), TextureFormat.RGB_DXT1,
+                              Compressor.NONE)
+    with pytest.raises(NotImplementedError, match="RGB_DXT1"):
+        decode_frame_any_device(other, H, W, device="cpu")
+
+    for frames, promotes in (((enc, enc), ("pieces", "auto", 0)),
+                             ((nonu, nonu), ("pieces",))):
+        for promote in promotes:
+            sess = ForeignGopSession(H, W, promote=promote, device="cpu")
+            staged = [sess.stage(f) for f in frames]
+            pix, ok = sess.decode_gop(staged)
+            assert ok.tolist() == [True, True]
+            for k in range(2):
+                np.testing.assert_array_equal(pix[k].numpy(), ref)
+            jsess = jany.ForeignGopSession(H, W, promote=promote)
+            jstaged = [jsess.stage(f) for f in frames]
+            assert staged[0].profile == jstaged[0].profile
+            assert sess.hbm_bytes_per_frame(staged[0]) == \
+                jsess.hbm_bytes_per_frame(jstaged[0])
+    staged = [sess.stage(enc), sess.stage(nonu)]  # two profiles
+    with pytest.raises(AssertionError):
+        jsess.decode_gop([jsess.stage(enc), jsess.stage(nonu)])
+    with pytest.raises(ValueError, match="uniform frame profile"):
+        sess.decode_gop(staged)
+    pix, ok = sess.decode_gop([sess.stage(bad), staged[0]])
+    assert ok.tolist() == [False, True]
+    np.testing.assert_array_equal(pix[1].numpy(), ref)
+    assert sess.compile_stats() == {"profiles_seen": 2,
+                                    "compiled_programs": 0,
+                                    "cache_evictions": 0, "max_profiles": 16}
+    with pytest.raises(ValueError):
+        ForeignGopSession(H, W, promote="fast", device="cpu")
 
 
 def _check_no_kernel_launches():
     """Every CPU run went through the plain versions only."""
-    for k in (LZ_EMIT, LZ_DECODE, STITCH, RAW_CHUNKS):
+    for k in (LZ_EMIT, LZ_DECODE, STITCH, RAW_CHUNKS, EXEC_TABLES,
+              GENERAL_DECODE):
         assert k.launches == 0, k.name

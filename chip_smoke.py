@@ -28,6 +28,19 @@ hap.c-layout frame and a non-uniform frame (offset table, shuffled
 storage, uneven sizes, mixed raw/Snappy, 8-byte header) per class, the
 GOP through ForeignGopSession, and a corrupted frame; 4. their times and
 the host stage split; 5. one profiled decode_gop.
+The RLE profile (HAP_TPU_DEVICE_LZ=0; kernels E and D(ii)) and the serving
+session add: 2. E and D(ii) against their plain versions on all 64 chunks
+of the three classes' payloads, on synthetic payloads that force every
+unit flavor at 4K, at S = 2048 (a seeded tail) and at S = 131072 (no
+tail), and on corrupted streams (preamble, seed and copy tags, pattern
+bytes, comp_len off by one, a raw chunk whose size entry is not S); 3.
+DeviceSession(2160, 3840, "hap_q", 64) under HAP_TPU_DEVICE_LZ=0 over
+the three frames -- roundtrip, encode_with_stats, decode_with_reasons --
+with every kernel's launch count read around it: pixels equal the LZ
+profile's, frames decompress on the host, stats and reasons match the
+frames; then the session once on the LZ default; 4. E and D(ii) per
+launch, the RLE roundtrip per frame and the session per batch; 5. one
+profiled RLE roundtrip and the device time of E and D(ii).
 Then one JSON line with the kernels' numbers and, last, the result line.
 Exits nonzero on any failure; without CUDA (or outside a checkout) it
 exits 2 and prints no result.
@@ -35,6 +48,7 @@ exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -118,6 +132,7 @@ def run(torch, dev) -> int:
     )
     from hap_tpu_torch.snappy.exec_kernels import EXEC_TABLES
     from hap_tpu_torch.snappy.general_kernels import GENERAL_DECODE
+    from hap_tpu_torch.snappy.rle_kernels import RLE_COMPACT, RLE_DECODE
     from hap_tpu_torch.snappy.stream_kernels import (
         RAW_CHUNKS,
         STITCH,
@@ -141,8 +156,8 @@ def run(torch, dev) -> int:
     reports = _build.build_all()
     build_s = time.perf_counter() - t0
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    check(len(sources) == 6 and all(_build.library(src) for src in sources),
-          f"expected six CUDA sources built and loaded, found {sources}")
+    check(len(sources) == 8 and all(_build.library(src) for src in sources),
+          f"expected eight CUDA sources built and loaded, found {sources}")
     for src, rep in sorted(reports.items()):
         for ln in rep.splitlines():
             if "registers" in ln or "spill" in ln:
@@ -167,6 +182,12 @@ def run(torch, dev) -> int:
                               "hap_tpu/snappy/pallas_general.py:206")
     meta["exec_tables"] = ("exec_tables.cu",
                            "hap_tpu/snappy/pallas_exec.py:89")
+    rle_kernels = {"rle_compact": RLE_COMPACT,
+                   "rle_decode_from_frame": RLE_DECODE}
+    meta["rle_compact"] = ("rle_compact.cu",
+                           "hap_tpu/snappy/pallas_kernels.py:143")
+    meta["rle_decode_from_frame"] = ("rle_decode.cu",
+                                     "hap_tpu/snappy/pallas_kernels.py:465")
     stats = {k: {"err": 0, "plain_ms": [], "bytes": []} for k in kernels}
 
     nbytes = dxt_payload_bytes(W, H, G)
@@ -225,8 +246,8 @@ def run(torch, dev) -> int:
             lit_bytes + 8 * n_pieces + plan_c.counts.numel() * 4 + 4 * cc
             + comp.numel())
 
-        args, flen = _stitch_inputs(payload, comp, plan.comp_len, cc,
-                                    FORMAT_YCOCG_DXT5, G)         # B
+        args, flen, _ = _stitch_inputs(payload, comp, plan.comp_len, cc,
+                                       FORMAT_YCOCG_DXT5, G)      # B
         frame = stitch_streams(*args)
         frame_p, ms = host_ms(lambda: stitch_streams(*map(cpu, args)))
         stats["stitch"]["plain_ms"].append(ms)
@@ -334,8 +355,10 @@ def run(torch, dev) -> int:
     ctx = types.SimpleNamespace(
         torch=torch, dev=dev, S=S, cc=cc, check=check, inputs=inputs,
         stats=stats, host_ms=host_ms, max_err=max_err, cuda_ms=cuda_ms,
-        card=card, hbm=hbm, sync=sync, time=time)
+        card=card, hbm=hbm, sync=sync, time=time, imgs=imgs, lz_out={},
+        rle_frames={})
     foreign_phase2(ctx)
+    rle_phase2(ctx)
 
     # ---- phase 3: the main path end to end ----------------------------------
     launches = {k: 0 for k in kernels}
@@ -376,6 +399,7 @@ def run(torch, dev) -> int:
               f"{cls}: GPU decode != CPU decode of the same words")
         d = out.to(torch.float64) - img[..., :3].to(torch.float64)
         psnr[cls] = float(10 * torch.log10(255.0 ** 2 / (d * d).mean()))
+        ctx.lz_out[cls] = out
         print(f"phase 3 {cls}: roundtrip ok, frame {int(flen)} B "
               f"({tex.chunk_count} chunks, "
               f"{int((tex.chunk_compressors == 0x0B).sum())} Snappy) parses "
@@ -384,6 +408,7 @@ def run(torch, dev) -> int:
     print(f"phase 3 kernels: launches on the main path over the three frames "
           f"{json.dumps(launches)} [{card}]", flush=True)
     launches.update(foreign_phase3(ctx))
+    launches.update(rle_phase3(ctx))
 
     # ---- phase 4: times -------------------------------------------------------
     frames = {c: encode_pipeline(imgs[c], "hap_q", CHUNKS, device=dev)[0]
@@ -441,6 +466,8 @@ def run(torch, dev) -> int:
             cuda_ms(lambda: fpad[ridx]))
     for name, ms in foreign_phase4(ctx).items():
         per[name] = {"ms": ms, "lib": []}  # no torch call decodes Snappy
+    for name, ms in rle_phase4(ctx).items():
+        per[name] = {"ms": ms, "lib": []}  # nor encodes it
 
     # ---- phase 5: where the device time goes (torch.profiler) -----------
     from torch.profiler import ProfilerActivity, profile
@@ -484,9 +511,10 @@ def run(torch, dev) -> int:
         print(f"phase 5 profile: the profiler saw no device time [{card}]",
               flush=True)
     device_ms.update(foreign_profile(ctx, profile, ProfilerActivity))
+    device_ms.update(rle_profile(ctx, profile, ProfilerActivity))
 
     rows = []
-    for name in list(kernels) + list(foreign_kernels):
+    for name in list(kernels) + list(foreign_kernels) + list(rle_kernels):
         src, replaces = meta[name]
         ms = statistics.mean(per[name]["ms"])
         lib = per[name]["lib"]
@@ -866,6 +894,7 @@ def foreign_phase3(ctx):
     from hap_tpu_torch.pipeline.device_pipeline import decode_blocks
     from hap_tpu_torch.snappy.exec_kernels import EXEC_TABLES
     from hap_tpu_torch.snappy.general_kernels import GENERAL_DECODE
+    from hap_tpu_torch.snappy.rle_kernels import RLE_COMPACT, RLE_DECODE
 
     torch, dev, check, fi = ctx.torch, ctx.dev, ctx.check, ctx.fi
 
@@ -945,6 +974,422 @@ def foreign_phase4(ctx):
           f"chunks): {gop_launch:.4f} ms; bound {nbytes / ctx.hbm * 1e3:.4f} "
           f"ms; plain (host CPU) {plain:.0f} ms [{ctx.card}]", flush=True)
     return per
+
+
+# ---------------------------------------------------------------------------
+# the RLE profile (HAP_TPU_DEVICE_LZ=0): kernels E (rle_compact) and D(ii)
+# (rle_decode_from_frame), pipeline/session.py
+# ---------------------------------------------------------------------------
+
+RLE_SESSION_BATCH = 3  # the three classes, one host sync
+
+
+def rle_rows(rng, S, C):
+    """(C, S) payloads that force every flavor of the profile: flat rows
+    (seeded unit 0, copies, a tail copy or a seeded tail), periodic rows
+    broken by a literal unit whose last G bytes the next unit copies,
+    rows of flat and random units mixed, and random rows (literals)."""
+    import numpy as np
+
+    U = 4096
+    rows = np.empty((C, S), np.uint8)
+    for c in range(C):
+        pat = rng.integers(0, 256, G, dtype=np.uint8)
+        r = np.tile(pat, S // G)
+        kind = c % 4
+        n_units = -(-S // U)
+        if kind == 1 and S > U:  # a literal unit mid-chunk
+            u = 1 + c % max(1, n_units - 2)
+            r[u * U: min(S, (u + 1) * U) - G] = rng.integers(
+                0, 256, min(S, (u + 1) * U) - G - u * U)
+        elif kind == 1:  # a literal seed group, then the run
+            r[:G] = rng.integers(0, 256, G)
+        elif kind == 2:  # flat and random units mixed
+            for u in range(n_units):
+                if rng.integers(0, 2):
+                    a, b = u * U, min(S, (u + 1) * U)
+                    r[a:b] = rng.integers(0, 256, b - a)
+        elif kind == 3:
+            r = rng.integers(0, 256, S, dtype=np.uint8)
+        rows[c] = r
+    return rows
+
+
+def rle_phase2(ctx):
+    """Kernels E and D(ii) against their plain versions: the three classes'
+    4K payloads, synthetic payloads forcing every flavor at 4K, an S <
+    4096 shape (seeded tail) and a shape with no tail, and corrupted
+    streams."""
+    import numpy as np
+
+    from hap_tpu_torch.snappy import device as rle
+    from hap_tpu_torch.snappy.rle_kernels import (
+        compact_streams_from_data, decode_rle_streams_from_frame)
+    from hap_tpu_torch.snappy.stream_kernels import raw_chunks_from_frame
+
+    torch, dev, check = ctx.torch, ctx.dev, ctx.check
+    st = ctx.stats
+    st["rle_compact"] = {"err": 0, "plain_ms": [], "bytes": []}
+    st["rle_decode_from_frame"] = {"err": 0, "plain_ms": [], "bytes": []}
+    ctx.rle_in = {}
+
+    def e_bytes(sizes, p):
+        lit = sizes == p.emit_max
+        t = p.n_full < sizes.shape[1]
+        if t:
+            lit[:, -1] = sizes[:, -1] == p.tail_lit_size
+        unit_len = torch.full(sizes.shape, p.U)
+        if t:
+            unit_len[:, -1] = p.tail
+        seeded = (sizes == p.seed_size)[:, 0] if p.n_full else \
+            sizes[:, 0] == p.tail_seed_size
+        return (int(unit_len[lit].sum()) + G * int(seeded.sum())
+                + 8 * sizes.numel() + sizes.shape[0] * p.bound)
+
+    def run(data, S, label, record=False):
+        """E and D(ii) (after D) on device and plain; returns the decode
+        tables and the plain E streams."""
+        p = rle.profile(S, G)
+        C = data.shape[0]
+        sizes = rle._unit_sizes(data, S, G)
+        pos, clen = rle._positions(sizes, len(p.pre))
+        e_args = (data, pos, sizes, S, G, p.bound)
+        comp = compact_streams_from_data(*e_args)
+        e_args_c = tuple(map(ctx_cpu, e_args))
+        comp_p, ms = ctx.host_ms(lambda: compact_streams_from_data(*e_args_c))
+        err = ctx.max_err(comp.cpu(), comp_p)
+        st["rle_compact"]["err"] = max(st["rle_compact"]["err"], err)
+        check(err == 0, f"{label}: rle_compact != plain")
+        comp[:, :len(p.pre)] = torch.from_numpy(p.pre).to(dev)
+        comp_p[:, :len(p.pre)] = torch.from_numpy(p.pre)
+        tables = (comp.reshape(-1),
+                  torch.arange(C, dtype=torch.int32, device=dev) * p.bound,
+                  clen, torch.ones(C, dtype=torch.bool, device=dev))
+        out, ok, out_p, ok_p, d_ms = rle_decode_both(tables, S)
+        check(bool(ok_p.all()) and torch.equal(out_p, data.cpu()),
+              f"{label}: the streams do not decode to the payload")
+        if record:
+            st["rle_compact"]["plain_ms"].append(ms)
+            st["rle_compact"]["bytes"].append(e_bytes(sizes.cpu(), p))
+            st["rle_decode_from_frame"]["plain_ms"].append(d_ms)
+            st["rle_decode_from_frame"]["bytes"].append(
+                int(clen.clamp(max=p.bound).sum()) + C * S + 10 * C)
+        flavors = sorted(set(sizes.flatten().tolist()))
+        return (e_args, tables), comp_p, flavors, clen.cpu()
+
+    def ctx_cpu(t):
+        return t.cpu() if torch.is_tensor(t) else t
+
+    def rle_decode_both(tables, S):
+        out, ok = raw_chunks_from_frame(*tables, S)
+        decode_rle_streams_from_frame(*tables, S, G, out, ok)
+        tables_c = tuple(t.cpu() for t in tables)
+
+        def plain():
+            o, k = raw_chunks_from_frame(*tables_c, S)
+            decode_rle_streams_from_frame(*tables_c, S, G, o, k)
+            return o, k
+
+        (out_p, ok_p), ms = ctx.host_ms(plain)
+        err = ctx.max_err(out.cpu(), out_p)
+        st["rle_decode_from_frame"]["err"] = max(
+            st["rle_decode_from_frame"]["err"], err)
+        check(err == 0 and torch.equal(ok.cpu(), ok_p),
+              "rle_decode_from_frame != plain")
+        return out, ok, out_p, ok_p, ms
+
+    S, cc = ctx.S, ctx.cc
+    for cls in CLASSES:
+        chunks = ctx.inputs[cls]["chunks"]
+        args, _, flavors, clen = run(chunks, S, cls, record=True)
+        ctx.rle_in[cls] = args
+        n_snappy = int((clen < S).sum())
+        print(f"phase 2 rle {cls}: rle_compact and rle_decode_from_frame "
+              f"equal their plain versions on all {cc} chunks; {n_snappy} "
+              f"streams shorter than the chunk; unit sizes {flavors} "
+              f"[{ctx.card}]", flush=True)
+
+    rng = np.random.default_rng(7)
+    shapes = ((S, cc, "4K synthetic"), (2048, cc, "S=2048 (tail only)"),
+              (131072, cc, "S=131072 (no tail)"))
+    for S2, C2, label in shapes:
+        data = torch.from_numpy(rle_rows(rng, S2, C2)).to(dev)
+        (_, tables), comp_p, flavors, _ = run(data, S2, label)
+        p = rle.profile(S2, G)
+        want = {p.emit_max, len(p.copy_pat), p.seed_size} if p.n_full else \
+            {p.tail_lit_size, p.tail_seed_size}
+        if p.tail and p.n_full:
+            want |= {p.tail_lit_size, len(p.tail_copy_pat)}
+        check(want <= set(flavors), f"{label}: flavors {flavors} lack "
+              f"{sorted(want - set(flavors))}")
+        print(f"phase 2 rle {label}: E and D(ii) equal their plain "
+              f"versions on {C2} chunks of {S2} B; unit sizes {flavors} "
+              f"(every flavor) [{ctx.card}]", flush=True)
+        if S2 == S:
+            synth = (data, comp_p, tables)
+
+    # corrupted streams, read as a frame: chunk c at c * bound
+    data, comp_p, (flat, cpos, clen, cis) = synth
+    p = rle.profile(S, G)
+    P = len(p.pre)
+    bad = flat.clone().reshape(cc, p.bound)
+    sizes = clen.clone()
+    is_comp = cis.clone()
+    runs = [c for c in range(cc) if c % 4 == 0]  # flat rows
+    cases = [
+        ("wrong preamble", runs[0], lambda r: (0, 1)),
+        ("seed tag flipped", runs[1], lambda r: (P, 4)),
+        ("copy tag flipped", runs[2], lambda r: (P + p.seed_size, 8)),
+        ("copy pattern byte", runs[3], lambda r: (P + p.seed_size + 4, 1)),
+        ("seed pattern byte", runs[4], lambda r: (P + 1 + G + 1, 2)),
+        ("tail copy tag", runs[5], lambda r: (int(clen[r]) - 3, 8)),
+    ]
+    for _, r, f in cases:
+        at, x = f(r)
+        bad[r, at] ^= x
+    sizes[runs[6]] += 1
+    sizes[runs[7]] -= 1
+    is_comp[runs[8]] = False  # stored raw, but its size entry is not S
+    flagged = [r for _, r, _ in cases] + runs[6:9]
+    names = [n for n, _, _ in cases] + ["comp_len + 1", "comp_len - 1",
+                                        "raw chunk, size != S"]
+    _, ok, _, ok_p, _ = rle_decode_both(
+        (bad.reshape(-1), cpos, sizes, is_comp), S)
+    want = torch.ones(cc, dtype=torch.bool)
+    want[flagged] = False
+    check(torch.equal(ok_p, want), f"corrupted rle streams not flagged "
+          f"exactly: not-ok {torch.nonzero(~ok_p).flatten().tolist()}, "
+          f"corrupted {flagged}")
+    print(f"phase 2 rle corrupted streams: {', '.join(names)} flagged "
+          f"not-ok by D(ii) (and D) and their plain versions alike; the "
+          f"{cc - len(flagged)} other chunks ok [{ctx.card}]", flush=True)
+
+
+def rle_phase3(ctx):
+    """The RLE profile end to end through DeviceSession; returns E's and
+    D(ii)'s launch counts."""
+    import numpy as np
+
+    from hap_tpu_torch.container.parse import parse_frame
+    from hap_tpu_torch.pipeline.session import DECODE_REASONS, DeviceSession
+    from hap_tpu_torch.snappy import pyref
+    from hap_tpu_torch.snappy.lz_kernels import LZ_DECODE, LZ_EMIT
+    from hap_tpu_torch.snappy.rle_kernels import RLE_COMPACT, RLE_DECODE
+    from hap_tpu_torch.snappy.stream_kernels import RAW_CHUNKS, STITCH
+
+    torch, check = ctx.torch, ctx.check
+    frames = np.stack([ctx.imgs[c].cpu().numpy() for c in CLASSES])
+    all_k = {"lz_emit": LZ_EMIT, "lz_decode_from_frame": LZ_DECODE,
+             "stitch": STITCH, "raw_chunks_from_frame": RAW_CHUNKS,
+             "rle_compact": RLE_COMPACT,
+             "rle_decode_from_frame": RLE_DECODE}
+    n = len(CLASSES)
+    with device_lz("0"):
+        sess = DeviceSession(H, W, "hap_q", CHUNKS, batch=RLE_SESSION_BATCH,
+                             device=ctx.dev)
+        for k in all_k.values():
+            k.launches = 0
+        out, flen, ok = sess.roundtrip(frames)
+        encoded, stats = sess.encode_with_stats(frames)
+        fmax = max(map(len, encoded))
+        padded = np.zeros((n, fmax), np.uint8)
+        for i, fb in enumerate(encoded):
+            padded[i, :len(fb)] = np.frombuffer(fb, np.uint8)
+        img, ok_r, reasons = sess.decode_with_reasons(padded)
+        ctx.sync()
+        counts = {name: k.launches for name, k in all_k.items()}
+    want = {"lz_emit": 0, "lz_decode_from_frame": 0, "stitch": 2 * n,
+            "raw_chunks_from_frame": 2 * n, "rle_compact": 2 * n,
+            "rle_decode_from_frame": 2 * n}
+    check(counts == want, f"rle session launches {counts}, expected {want}")
+    check(bool(ok.all()) and bool(ok_r.all()), "rle session: ok is False")
+    check(all(all(all(v) for v in d.values()) and set(d) ==
+              set(DECODE_REASONS) for d in reasons), "rle reasons not all ok")
+    desc = []
+    for i, cls in enumerate(CLASSES):
+        lz = ctx.lz_out[cls].cpu()
+        check(torch.equal(torch.from_numpy(out[i]), lz)
+              and torch.equal(torch.from_numpy(img[i]), lz),
+              f"{cls}: RLE pixels != LZ pixels")
+        fb = encoded[i]
+        check(len(fb) == int(flen[i]), f"{cls}: frame length differs")
+        tex = parse_frame(fb).textures[0]
+        payload = ctx.inputs[cls]["payload"].cpu().numpy().tobytes()
+        parts = []
+        for c in range(tex.chunk_count):
+            a = int(tex.chunk_compressed_offsets[c])
+            blob = fb[a: a + int(tex.chunk_compressed_sizes[c])]
+            if tex.chunk_compressors[c] == 0x0B:
+                blob = pyref.decompress(blob, int(
+                    tex.chunk_uncompressed_sizes[c]))
+            parts.append(blob)
+        check(b"".join(parts) == payload,
+              f"{cls}: RLE frame does not decompress to its payload")
+        s = stats[i]
+        raw = tex.stored_compressor == 0xA
+        snappy = 0 if raw else int((tex.chunk_compressors == 0x0B).sum())
+        check(s.frame_bytes == len(fb) and s.input_bytes == len(payload)
+              and s.whole_frame_raw_sections == int(raw)
+              and s.snappy_chunks == snappy
+              and s.raw_chunk_fallbacks == (0 if raw else CHUNKS - snappy)
+              and s.chunk_count == CHUNKS,
+              f"{cls}: stats {s} disagree with the frame")
+        if cls == "natural":
+            check(not raw and snappy > 0, "natural RLE frame has no Snappy "
+                  "chunks")
+        else:
+            check(raw and len(fb) == 4 + len(payload),
+                  f"{cls}: RLE frame is not stored whole-frame raw")
+        ctx.rle_frames[cls] = fb
+        desc.append(f"{cls} {len(fb)} B, "
+                    + ("whole-frame raw" if raw else
+                       f"complex, {snappy} of {CHUNKS} chunks Snappy"))
+    print(f"phase 3 rle (HAP_TPU_DEVICE_LZ=0): DeviceSession roundtrip, "
+          f"encode_with_stats and decode_with_reasons over the three 4K "
+          f"frames: ok everywhere, pixels == the LZ profile's, frames "
+          f"decompress on the host to their payloads, stats and reasons "
+          f"match the frames; {'; '.join(desc)}; launches "
+          f"{json.dumps(counts)} [{ctx.card}]", flush=True)
+
+    # the session once more on the LZ default
+    for k in all_k.values():
+        k.launches = 0
+    sess = DeviceSession(H, W, "hap_q", CHUNKS, batch=RLE_SESSION_BATCH,
+                         device=ctx.dev)
+    out, flen, ok = sess.roundtrip(frames)
+    counts_lz = {name: k.launches for name, k in all_k.items()}
+    check(bool(ok.all()) and all(torch.equal(torch.from_numpy(out[i]),
+                                             ctx.lz_out[c].cpu())
+                                 for i, c in enumerate(CLASSES)),
+          "LZ session roundtrip != roundtrip_pipeline")
+    check(counts_lz["lz_emit"] == n and counts_lz["rle_compact"] == 0
+          and counts_lz["lz_decode_from_frame"] == n
+          and counts_lz["rle_decode_from_frame"] == 0,
+          f"LZ session launches {counts_lz}")
+    print(f"phase 3 session (LZ default): roundtrip of the three frames ok, "
+          f"pixels == roundtrip_pipeline's; launches {json.dumps(counts_lz)} "
+          f"[{ctx.card}]", flush=True)
+    ctx.rle_session = (sess, frames)
+    return {"rle_compact": counts["rle_compact"],
+            "rle_decode_from_frame": counts["rle_decode_from_frame"]}
+
+
+def rle_phase4(ctx):
+    """Times of the RLE profile: E and D(ii) per launch, the RLE
+    roundtrip per frame, and the session per batch on both profiles."""
+    from hap_tpu_torch.pipeline.device_pipeline import roundtrip_pipeline
+    from hap_tpu_torch.pipeline.session import DeviceSession
+    from hap_tpu_torch.snappy.rle_kernels import (
+        compact_streams_from_data, decode_rle_streams_from_frame)
+
+    torch, dev = ctx.torch, ctx.dev
+    per = {"rle_compact": [], "rle_decode_from_frame": []}
+    for cls in CLASSES:
+        e_args, tables = ctx.rle_in[cls]
+        per["rle_compact"].append(ctx.cuda_ms(
+            lambda: compact_streams_from_data(*e_args)))
+        out = torch.empty((ctx.cc, ctx.S), dtype=torch.uint8, device=dev)
+        ok = torch.empty(ctx.cc, dtype=torch.bool, device=dev)
+        per["rle_decode_from_frame"].append(ctx.cuda_ms(
+            lambda: decode_rle_streams_from_frame(*tables, ctx.S, G, out,
+                                                  ok)))
+    sess_lz, frames = ctx.rle_session
+
+    def batch_ms(sess):
+        sess.roundtrip(frames)  # warm-up
+        ts = []
+        for _ in range(3):
+            t = ctx.time.perf_counter()
+            sess.roundtrip(frames)
+            ts.append((ctx.time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+
+    with device_lz("0"):
+        rt = [ctx.cuda_ms(lambda: roundtrip_pipeline(
+            ctx.imgs[c], "hap_q", CHUNKS, device=dev)) for c in CLASSES]
+        sess = DeviceSession(H, W, "hap_q", CHUNKS, batch=RLE_SESSION_BATCH,
+                             device=dev)
+        rle_batch = batch_ms(sess)
+    lz_batch = batch_ms(sess_lz)
+    print(f"phase 4 rle roundtrip (HAP_TPU_DEVICE_LZ=0): " + ", ".join(
+        f"{c} {m:.3f} ms" for c, m in zip(CLASSES, rt))
+        + f"; median {statistics.median(rt):.3f} ms/frame [{ctx.card}]",
+        flush=True)
+    print(f"phase 4 DeviceSession roundtrip of a {len(frames)}-frame batch "
+          f"(host clock, pixels in and out, one sync): RLE {rle_batch:.1f} "
+          f"ms ({rle_batch / len(frames):.1f} ms/frame), LZ {lz_batch:.1f} "
+          f"ms ({lz_batch / len(frames):.1f} ms/frame) [{ctx.card}]",
+          flush=True)
+    return per
+
+
+def rle_profile(ctx, profile, activity):
+    """Device busy and idle share of one RLE roundtrip (natural), and the
+    device time of E and D(ii) per launch on the classes' inputs."""
+    from hap_tpu_torch.pipeline.device_pipeline import roundtrip_pipeline
+    from hap_tpu_torch.snappy.rle_kernels import (
+        compact_streams_from_data, decode_rle_streams_from_frame)
+
+    torch = ctx.torch
+    with device_lz("0"):
+        roundtrip_pipeline(ctx.imgs["natural"], "hap_q", CHUNKS,
+                           device=ctx.dev)
+        ctx.sync()
+        with profile(activities=[activity.CPU, activity.CUDA]) as prof:
+            roundtrip_pipeline(ctx.imgs["natural"], "hap_q", CHUNKS,
+                               device=ctx.dev)
+            ctx.sync()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    if ev:
+        span = (max(e.time_range.end for e in ev)
+                - min(e.time_range.start for e in ev)) / 1e3
+        busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+        mine = {s: sum(e.time_range.elapsed_us() for e in ev
+                       if s in e.name) / 1e3
+                for s in ("rle_compact_kernel", "rle_decode_kernel")}
+        print(f"phase 5 rle profile (one RLE roundtrip, natural): {len(ev)} "
+              f"device ops, device busy {busy:.3f} ms of a {span:.3f} ms "
+              f"window (idle {100 * (1 - busy / span):.1f}%); E "
+              f"{mine['rle_compact_kernel']:.3f} ms, D(ii) "
+              f"{mine['rle_decode_kernel']:.3f} ms, torch ops and B, D "
+              f"{busy - sum(mine.values()):.3f} ms [{ctx.card}]", flush=True)
+    else:
+        print(f"phase 5 rle profile: the profiler saw no device time "
+              f"[{ctx.card}]", flush=True)
+    with profile(activities=[activity.CPU, activity.CUDA]) as prof:
+        for cls in CLASSES:
+            e_args, tables = ctx.rle_in[cls]
+            compact_streams_from_data(*e_args)
+            out = torch.empty((ctx.cc, ctx.S), dtype=torch.uint8,
+                              device=ctx.dev)
+            ok = torch.empty(ctx.cc, dtype=torch.bool, device=ctx.dev)
+            decode_rle_streams_from_frame(*tables, ctx.S, G, out, ok)
+        ctx.sync()
+    device_ms = {}
+    for name, symbol in (("rle_compact", "rle_compact_kernel"),
+                         ("rle_decode_from_frame", "rle_decode_kernel")):
+        hits = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and symbol in e.name]
+        if hits:
+            device_ms[name] = sum(hits) / 1e3 / len(hits)
+    return device_ms
+
+
+@contextlib.contextmanager
+def device_lz(value):
+    """HAP_TPU_DEVICE_LZ set to ``value`` inside the block, restored
+    after."""
+    old = os.environ.get("HAP_TPU_DEVICE_LZ")
+    os.environ["HAP_TPU_DEVICE_LZ"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["HAP_TPU_DEVICE_LZ"]
+        else:
+            os.environ["HAP_TPU_DEVICE_LZ"] = old
 
 
 if __name__ == "__main__":

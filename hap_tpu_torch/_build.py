@@ -3,9 +3,9 @@
 Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface under ``hap_tpu_torch/_build/`` at first use, all sources
 in parallel, and loaded with ctypes. A library is rebuilt when its source
-is newer. Every C entry point launches on the stream it is given and
-returns ``cudaGetLastError()``; ``CudaKernel.__call__`` raises on a
-nonzero code and counts the launch.
+or a header in ``csrc/`` is newer. Every C entry point launches on the
+stream it is given and returns ``cudaGetLastError()``;
+``CudaKernel.__call__`` raises on a nonzero code and counts the launch.
 """
 
 from __future__ import annotations
@@ -41,8 +41,9 @@ def _lib_path(source: str) -> Path:
 
 def _stale(source: str) -> bool:
     lib = _lib_path(source)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / source).stat().st_mtime)
+    newest = max(p.stat().st_mtime
+                 for p in [CSRC / source, *CSRC.glob("*.cuh")])
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def build_all(sources=None) -> dict:

@@ -1,4 +1,4 @@
-"""On-device Hap container assembly and parse (LZ Snappy profile).
+"""On-device Hap container assembly and parse.
 
 Builds a whole Hap frame -- headers, decode-instruction tables, chunked
 Snappy payload -- as device tensors, and parses it back, with no host
@@ -7,12 +7,21 @@ raw fallback, header checks) is a tensor op. Byte semantics are the
 reference encoder's, so a frame built here is byte-identical to the host
 serializer's around the same chunk streams.
 
+The Snappy streams follow one of two device profiles, chosen by the
+environment variable ``HAP_TPU_DEVICE_LZ`` at each call: the LZ profile
+(``"1"``, the default; ``snappy/device_lz.py``, kernels A and C) or the
+structured RLE profile (``"0"``; ``snappy/device.py``, kernels E and
+D(ii)). Raw chunks go through kernel D and the stitch through kernel B
+under both.
+
 The parse side accepts the layout this encoder (and the reference encoder)
 writes -- decode instructions, compressor table and size table at fixed
 offsets, no offset table -- and flags anything else not-ok.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -27,12 +36,13 @@ from hap_tpu_torch.constants import (
     UINT24_MAX,
 )
 from hap_tpu_torch.kernels.layout import wrap_int32
-from hap_tpu_torch.snappy.device import profile
+from hap_tpu_torch.snappy.device import profile, snappy_encode_chunks
 from hap_tpu_torch.snappy.device_lz import lz_bound, plan_lz
 from hap_tpu_torch.snappy.lz_kernels import (
     decode_lz_streams_from_frame,
     emit_lz_streams,
 )
+from hap_tpu_torch.snappy.rle_kernels import decode_rle_streams_from_frame
 from hap_tpu_torch.snappy.stream_kernels import (
     raw_chunks_from_frame,
     stitch_streams,
@@ -77,9 +87,19 @@ def _header(length: torch.Tensor, section_type: int, hdr: int):
     return torch.cat([torch.zeros(3, dtype=_U8, device=length.device), t, b])
 
 
+def _lz_enabled() -> bool:
+    """The device Snappy profile switch, as the reference reads it: the LZ
+    profile unless ``HAP_TPU_DEVICE_LZ`` is set to something other than
+    ``"1"``, which selects the structured RLE profile. Read at every call
+    (nothing is traced)."""
+    return os.environ.get("HAP_TPU_DEVICE_LZ", "1") == "1"
+
+
 def _encode_chunks(chunks: torch.Tensor, S: int, G: int, row_bytes: int):
-    """(C, S) payload chunks -> ((C, lz_bound(S)) uint8 streams, (C,) int32
-    stream lengths)."""
+    """(C, S) payload chunks -> ((C, B) uint8 streams, (C,) int32 stream
+    lengths) under the active profile (B: that profile's stream bound)."""
+    if not _lz_enabled():
+        return snappy_encode_chunks(chunks, S, G)
     plan = plan_lz(chunks, S, G, row_bytes)
     return emit_lz_streams(chunks, plan, S), plan.comp_len
 
@@ -88,11 +108,13 @@ def _stitch_inputs(payload: torch.Tensor, comp: torch.Tensor,
                    comp_len: torch.Tensor, chunk_count: int, fmt_id: int,
                    G: int):
     """Container decisions around per-chunk streams -> (the arguments of
-    ``stitch_streams``, () int32 frame length).
+    ``stitch_streams``, () int32 frame length, (3,) int32 stats).
 
     A chunk is stored raw when its stream is not shorter than the chunk;
     the whole frame is stored raw when the complex section would not be
-    shorter than the raw payload. Both decisions stay on the device."""
+    shorter than the raw payload. Both decisions stay on the device. The
+    stats are [Snappy chunks stored, payload bytes stored, whole-frame raw
+    (0/1)]: 0 and ``input_bytes`` when the whole frame is raw."""
     dev = payload.device
     input_bytes = payload.shape[0]
     C = chunk_count
@@ -128,16 +150,21 @@ def _stitch_inputs(payload: torch.Tensor, comp: torch.Tensor,
     src_comp = is_comp & use_complex
     frame_len = torch.where(use_complex, top_hdr + top_section_length,
                             top_hdr + input_bytes).to(_I32)
+    stats = torch.stack([
+        torch.where(use_complex, is_comp.sum(dtype=_I32), 0),
+        torch.where(use_complex, top_section_length - 4 - dil, input_bytes),
+        (~use_complex).to(_I32),
+    ]).to(_I32)
     return ((header, header_len, comp, chunks, src_comp, q, lengths, fmax),
-            frame_len)
+            frame_len, stats)
 
 
 def _assemble_frame(payload, comp, comp_len, chunk_count, fmt_id, G):
     """Container assembly (kernel B) -> ((fmax,) uint8 frame, () int32
-    frame length)."""
-    args, frame_len = _stitch_inputs(payload, comp, comp_len, chunk_count,
-                                     fmt_id, G)
-    return stitch_streams(*args), frame_len
+    frame length, (3,) int32 stats of ``_stitch_inputs``)."""
+    args, frame_len, stats = _stitch_inputs(payload, comp, comp_len,
+                                            chunk_count, fmt_id, G)
+    return stitch_streams(*args), frame_len, stats
 
 
 def encode_frame_device(payload: torch.Tensor, chunk_count: int, fmt_id: int,
@@ -147,7 +174,18 @@ def encode_frame_device(payload: torch.Tensor, chunk_count: int, fmt_id: int,
 
     ``chunk_count`` must already be legal
     (``constants.legalize_chunk_count``). ``row_bytes`` (bytes per 4-pixel
-    block row, G * W / 4) seeds the planner's vertical-match candidates."""
+    block row, G * W / 4) seeds the LZ planner's vertical-match
+    candidates."""
+    return encode_frame_device_stats(payload, chunk_count, fmt_id, G,
+                                     row_bytes)[:2]
+
+
+def encode_frame_device_stats(payload: torch.Tensor, chunk_count: int,
+                              fmt_id: int, G: int, row_bytes: int = 0):
+    """``encode_frame_device`` plus a (3,) int32 stats vector: [Snappy
+    chunks stored, payload bytes stored (``input_bytes`` when the whole
+    frame fell back to raw), whole-frame raw fallback (0/1)]. For a
+    complex frame, ``chunk_count - stats[0]`` chunks were stored raw."""
     C = chunk_count
     S = payload.shape[0] // C
     comp, comp_len = _encode_chunks(payload.reshape(C, S), S, G, row_bytes)
@@ -161,11 +199,16 @@ def _le_field(frame: torch.Tensor, off: int, n: int) -> torch.Tensor:
     return wrap_int32(sum(b[i] << (8 * i) for i in range(n)))
 
 
-def _decode_chunk_streams(frame, pos, csizes, is_comp, S: int):
+def _decode_chunk_streams(frame, pos, csizes, is_comp, S: int, G: int):
     """Raw chunks through kernel D (which checks their true size-table
-    entries), compressed chunks through kernel C into the same rows."""
+    entries), compressed chunks through the active profile's walk (kernel
+    C, or D(ii) for the RLE profile) into the same rows."""
     out, ok = raw_chunks_from_frame(frame, pos, csizes, is_comp, S)
-    decode_lz_streams_from_frame(frame, pos, csizes, is_comp, S, out, ok)
+    if _lz_enabled():
+        decode_lz_streams_from_frame(frame, pos, csizes, is_comp, S, out, ok)
+    else:
+        decode_rle_streams_from_frame(frame, pos, csizes, is_comp, S, G, out,
+                                      ok)
     return out, ok
 
 
@@ -237,7 +280,7 @@ def decode_frame_device(frame: torch.Tensor, input_bytes: int,
     """
     frame, pos, csizes, is_comp, S, checks = _parse_tables(
         frame, input_bytes, chunk_count, fmt_id, G)
-    out, chunk_ok = _decode_chunk_streams(frame, pos, csizes, is_comp, S)
+    out, chunk_ok = _decode_chunk_streams(frame, pos, csizes, is_comp, S, G)
     checks.append(torch.all(chunk_ok))
     ok = checks[0]
     for c in checks[1:]:

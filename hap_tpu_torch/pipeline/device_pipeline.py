@@ -1,11 +1,14 @@
-"""On-device pixel <-> Hap frame pipelines (Hap Q with the LZ second stage).
+"""On-device pixel <-> Hap frame pipelines (Hap Q).
 
 encode: pixels -> block planes -> scaled YCoCg -> BC4 (Y) + BC1 (CoCg)
-words -> word interleave -> LZ plan -> stream emission (kernel A) ->
-container stitch (kernel B). decode: frame parse -> raw chunks (kernel D)
-and LZ chunks (kernel C) straight out of the frame -> word de-interleave
--> BC4 + BC1 decode -> RGB. Everything stays on the device; the entry
-points return device tensors without synchronising.
+words -> word interleave -> Snappy streams -> container stitch (kernel B).
+decode: frame parse -> raw chunks (kernel D) and Snappy chunks straight
+out of the frame -> word de-interleave -> BC4 + BC1 decode -> RGB. The
+Snappy streams follow the LZ profile (LZ plan, emission kernel A, walk
+kernel C) or, with ``HAP_TPU_DEVICE_LZ=0``, the structured RLE profile
+(compaction kernel E, walk kernel D(ii)); see ``device_frame``.
+Everything stays on the device; the entry points return device tensors
+without synchronising.
 
 Only the ``hap_q`` codec is ported. Frames below 8192 rows take the direct
 path; the reference's tall-frame slabbing is an XLA workaround that the
@@ -40,6 +43,7 @@ from hap_tpu_torch.kernels.ycocg import (
 from hap_tpu_torch.pipeline.device_frame import (
     decode_frame_device,
     encode_frame_device,
+    encode_frame_device_stats,
 )
 from hap_tpu_torch.reference_state import encode_settings
 
@@ -104,18 +108,57 @@ def encode_pipeline(img, codec: str = "hap_q", chunk_count: int = 64,
     return encode_words(encode_blocks(img, effort), h, w, chunk_count)
 
 
+def encode_pipeline_stats(img, codec: str = "hap_q", chunk_count: int = 64,
+                          effort: str = "high", device="cuda"):
+    """``encode_pipeline`` plus per-texture stats: (frame, frame length,
+    (T, 6) int32), one row per texture section (T = 1 for Hap Q):
+    [input_bytes, chunk_count, Snappy chunks, payload bytes stored,
+    whole-frame raw (0/1), section frame length]. The compression ratio and
+    the per-chunk raw fallbacks follow from them."""
+    _check_codec(codec)
+    img = _on(img, device)
+    h, w = img.shape[0], img.shape[1]
+    cc = plan_chunks(h, w, chunk_count)
+    frame, flen, stats = encode_frame_device_stats(
+        words_to_payload(encode_blocks(img, effort)), cc, FORMAT_YCOCG_DXT5,
+        _G, row_bytes=_G * w // 4)
+
+    def const(v):  # a device scalar without a host-to-device copy
+        return torch.full((1,), v, dtype=torch.int32, device=img.device)
+
+    row = torch.cat([const(dxt_payload_bytes(w, h, _G)), const(cc), stats,
+                     flen[None]])
+    return frame, flen, row[None]
+
+
 def decode_pipeline(frame, height: int, width: int, codec: str = "hap_q",
                     chunk_count: int = 64, device="cuda"):
     """((F,) uint8 frame bytes, dims) -> ((H, W, 3) uint8 pixels, () bool
     ok) on ``device``. ok=False flags a frame outside the layout or stream
     profile this decoder accepts."""
+    return _decode(frame, height, width, codec, chunk_count, device, False)
+
+
+def decode_pipeline_reasons(frame, height: int, width: int,
+                            codec: str = "hap_q", chunk_count: int = 64,
+                            device="cuda"):
+    """``decode_pipeline`` plus a (T, 5) int32 ok-reason matrix, one row
+    per texture section (T = 1 for Hap Q); its columns are those of
+    ``decode_frame_device(with_reasons=True)``."""
+    img, ok, reasons = _decode(frame, height, width, codec, chunk_count,
+                               device, True)
+    return img, ok, reasons[None]
+
+
+def _decode(frame, height, width, codec, chunk_count, device, with_reasons):
     _check_codec(codec)
     frame = _on(frame, device)
     nbytes = dxt_payload_bytes(width, height, _G)
     cc = plan_chunks(height, width, chunk_count)
-    words, ok = decode_frame_device(frame, nbytes, cc, FORMAT_YCOCG_DXT5, _G,
-                                    out_words=True)
-    return decode_blocks(words, height, width), ok
+    words, *rest = decode_frame_device(frame, nbytes, cc, FORMAT_YCOCG_DXT5,
+                                       _G, out_words=True,
+                                       with_reasons=with_reasons)
+    return (decode_blocks(words, height, width), *rest)
 
 
 def roundtrip_pipeline(img, codec: str = "hap_q", chunk_count: int = 64,

@@ -16,6 +16,15 @@ seeds with numpy):
   decode_pipeline, Pallas kernels in interpret mode) runs once on a 64x128
   frame; the port rebuilds its frame bytes from its words, decodes its
   frame bit-exactly, and encodes the pixels to the same BC4 words;
+* the RLE profile (HAP_TPU_DEVICE_LZ=0): unit sizes, streams and lengths
+  byte-identical to the reference's XLA encoder, and kernels D + D(ii)'s
+  plain decode equal to its XLA decoder in bytes and ok flags, on flat,
+  random, mixed and broken-periodic payloads at S in {16, 2048, 4096,
+  8192, 12960}, on corrupted and on LZ-profile streams; RLE frames
+  byte-identical to the host serializer, the RLE decoder fuzzed, and the
+  slice under RLE around the reference's words; DeviceSession under both
+  profiles (stats against the host parse and the reference's
+  EncodeStats, reasons for corrupted frames);
 * the foreign-frame path: the port's Snappy compressor byte-identical to
   the reference's; its op tables equal the reference compiler's field by
   field; kernel G's plain version on the reference's own tables equals
@@ -40,6 +49,8 @@ little. torch and the port are imported inside the tests, so a worker
 that never runs them never loads torch.
 """
 
+import contextlib
+import os
 import re
 from pathlib import Path
 
@@ -60,6 +71,8 @@ from hap_tpu.kernels import ycocg as jy
 from hap_tpu.pipeline import any_frame as jany
 from hap_tpu.pipeline import codecs as jcodecs
 from hap_tpu.pipeline import device_pipeline as jpipe
+from hap_tpu.pipeline import session as jsession
+from hap_tpu.snappy import device as jdev
 from hap_tpu.snappy import device_lz as jlz
 from hap_tpu.snappy import optable as ref_optable
 from hap_tpu.snappy import pyref as ref_pyref
@@ -83,13 +96,15 @@ def _load_port():
         _encode_chunks, decode_frame_device, encode_frame_device,
         frame_layout)
     from hap_tpu_torch.pipeline.device_pipeline import (
-        decode_pipeline, encode_blocks, encode_pipeline, encode_words,
-        roundtrip_pipeline)
+        decode_pipeline, encode_blocks, encode_pipeline,
+        encode_pipeline_stats, encode_words, roundtrip_pipeline)
+    from hap_tpu_torch.pipeline.session import DECODE_REASONS, DeviceSession
     from hap_tpu_torch.pipeline.any_frame import (
         ForeignGopSession, decode_frame_any, decode_frame_any_device)
     from hap_tpu_torch.reference_state import (
         encode_settings, lz_plan_from_numpy, packed_tables_from_numpy,
         words_from_numpy)
+    from hap_tpu_torch.snappy import device as tdev
     from hap_tpu_torch.snappy import device_lz as tlz
     from hap_tpu_torch.snappy import optable
     from hap_tpu_torch.snappy import pyref
@@ -99,6 +114,8 @@ def _load_port():
         GENERAL_DECODE, decode_any_streams)
     from hap_tpu_torch.snappy.lz_kernels import (
         LZ_DECODE, LZ_EMIT, decode_lz_streams_from_frame, emit_lz_streams)
+    from hap_tpu_torch.snappy.rle_kernels import (
+        RLE_COMPACT, RLE_DECODE, compact_streams_from_data)
     from hap_tpu_torch.snappy.stream_kernels import (
         RAW_CHUNKS, STITCH, raw_chunks_from_frame, stitch_streams)
     torch.set_num_threads(1)
@@ -408,6 +425,132 @@ def _check_raw_chunks():
     np.testing.assert_array_equal(out[2].numpy()[:50], f[250:])
     assert not out[2].numpy()[50:].any()  # past the frame reads as 0
     assert ok.tolist() == [True, False, True, True]
+
+
+# ---------------------------------------------------------------------------
+# the RLE profile (HAP_TPU_DEVICE_LZ=0): kernels E and D(ii)
+# ---------------------------------------------------------------------------
+
+RLE_SIZES = (16, 2048, 4096, 8192, 12960)
+
+
+@contextlib.contextmanager
+def _device_lz(value):
+    """HAP_TPU_DEVICE_LZ set around port calls only: the reference reads it
+    while tracing, so no JAX function may trace inside."""
+    old = os.environ.get("HAP_TPU_DEVICE_LZ")
+    os.environ["HAP_TPU_DEVICE_LZ"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["HAP_TPU_DEVICE_LZ"]
+        else:
+            os.environ["HAP_TPU_DEVICE_LZ"] = old
+
+
+def _rle_payloads(S, rng):
+    """flat, random, mixed (flat then random) and periodic with a literal
+    unit in the middle whose last G bytes let the next unit copy them."""
+    pat = rng.integers(0, 256, G, dtype=np.uint8)
+    flat = np.tile(pat, S // G)
+    mixed = flat.copy()
+    mixed[S // 2:] = rng.integers(0, 256, S - S // 2)
+    broken = flat.copy()
+    k = 4096 if S >= 3 * 4096 else 0  # unit 1, or the first G bytes
+    broken[k: k + max(G, min(S, 4096) - G)] = rng.integers(
+        0, 256, max(G, min(S, 4096) - G))
+    return np.stack([flat, rng.integers(0, 256, S, dtype=np.uint8), mixed,
+                     broken])
+
+
+def _reference_rle(data, S):
+    """The reference's XLA RLE encoder: (streams, lengths, unit sizes)."""
+    (streams, lens), sizes = jax.jit(
+        lambda d: (jdev.snappy_encode_chunks(d, S, G, "xla"),
+                   jdev._unit_sizes(d, S, G)))(jnp.asarray(data))
+    return np.asarray(streams), np.asarray(lens), np.asarray(sizes)
+
+
+def _rle_corruptions(streams, lens, S):
+    """Corrupted copies of the flat row's stream (seeded unit 0, then
+    copies, or a seeded/copy tail): (name, stream row, length)."""
+    P = len(tdev.profile(S, G).pre)
+    flat, n = streams[0], int(lens[0])
+    out = []
+
+    def bad(name, at=None, xor=0, dn=0):
+        row = flat.copy()
+        if at is not None:
+            row[at] ^= xor
+        out.append((name, row, n + dn))
+
+    bad("preamble", 0, 1)
+    if S > G:
+        bad("seed tag", P, 4)
+        bad("seed pattern", P + 1 + G + 1, 1)
+    if S >= 8192:
+        seed = tdev.profile(S, G).seed_size
+        bad("copy tag", P + seed, 8)
+        bad("copy pattern", P + seed + 4, 1)
+    bad("length + 1", dn=1)
+    bad("length - 1", dn=-1)
+    return out
+
+
+def _check_rle_profile_against_reference():
+    """The port's _unit_sizes, snappy_encode_chunks (kernel E's plain
+    version) and snappy_decode_chunks (kernels D and D(ii)'s plain
+    versions) against the reference's XLA functions at every RLE_SIZES."""
+    dec_ref = jax.jit(jdev.snappy_decode_chunks, static_argnums=(2, 3, 4))
+    for S in RLE_SIZES:
+        data = _rle_payloads(S, np.random.default_rng(S))
+        streams, lens, sizes = _reference_rle(data, S)
+        x = torch.from_numpy(data)
+        np.testing.assert_array_equal(tdev._unit_sizes(x, S, G).numpy(),
+                                      sizes)
+        mine, mine_len = tdev.snappy_encode_chunks(x, S, G)
+        np.testing.assert_array_equal(mine_len.numpy(), lens)
+        np.testing.assert_array_equal(mine.numpy(), streams)
+        for c in range(len(data)):
+            assert ref_pyref.decompress(
+                streams[c, :lens[c]].tobytes(), S) == data[c].tobytes()
+        emit, esize = tdev._build_emissions(x, S, G)
+        np.testing.assert_array_equal(esize.numpy(), sizes)
+        rows = list(zip(streams, lens))
+        bad = _rle_corruptions(streams, lens, S)
+        rows += [(r, n) for _, r, n in bad]
+        if S % 4096 == 0:  # the LZ profile's streams are outside this one
+            rows += [(np.frombuffer(st, np.uint8), len(st))
+                     for st in _streams(data)]
+        B = max(len(r) for r, _ in rows)
+        comp = np.zeros((len(rows), B), np.uint8)
+        for i, (r, _) in enumerate(rows):
+            comp[i, :len(r)] = r
+        clen = np.array([n for _, n in rows], np.int32)
+        out, ok = tdev.snappy_decode_chunks(torch.from_numpy(comp),
+                                            torch.from_numpy(clen), S, G)
+        ref_out, ref_ok = (np.asarray(a) for a in dec_ref(
+            jnp.asarray(comp), jnp.asarray(clen), S, G, "xla"))
+        np.testing.assert_array_equal(ok.numpy(), ref_ok)
+        n_bad = len(data) + len(bad)
+        assert ok[:len(data)].all() and not ok[len(data): n_bad].any(), S
+        # LZ streams: a flat chunk's can happen to be this profile's too
+        assert S % 4096 or not ok[n_bad:].all()
+        np.testing.assert_array_equal(out.numpy()[:len(data)], data)
+        np.testing.assert_array_equal(out.numpy()[ok.numpy()],
+                                      ref_out[ref_ok])
+        assert not out.numpy()[~ok.numpy()].any()  # rejected rows are 0
+    # kernel E's plain version takes the flavor from the size alone
+    S = 12960
+    data = _rle_payloads(S, np.random.default_rng(1))
+    sizes = tdev._unit_sizes(torch.from_numpy(data), S, G)
+    pos, _ = tdev._positions(sizes, 2)
+    out = compact_streams_from_data(torch.from_numpy(data), pos, sizes, S, G,
+                                    tdev.profile(S, G).bound).numpy()
+    assert not out[:, :2].any()
+    lit = sizes == tdev.profile(S, G).emit_max
+    assert lit.any() and (~lit).any()
 
 
 # ---------------------------------------------------------------------------
@@ -844,9 +987,13 @@ def _check_device_rules():
     img = make_frame("graphics", 0, 8, 8)
     with pytest.raises(NotImplementedError):
         encode_pipeline(img, "hap", 1, device="cpu")
+    with pytest.raises(NotImplementedError):
+        DeviceSession(8, 8, "hap", 1, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             roundtrip_pipeline(img, "hap_q", 1)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DeviceSession(8, 8, "hap_q", 1)
     root = Path(__file__).resolve().parent.parent
     pat = re.compile(r"^\s*(import|from)\s+(jax|hap_tpu\b|tools)", re.M)
     for f in sorted((root / "hap_tpu_torch").rglob("*.py")) + [
@@ -878,6 +1025,8 @@ def test_port_modules_match_reference(reference_plan):
     _check_exec_plain_on_reference_tables(streams, lens)
     _check_general_plain_matches_pyref(streams, lens)
 
+    _check_rle_profile_against_reference()
+
     _check_no_kernel_launches()
     jax.clear_caches()  # this test's own compiles, as the fixture's
 
@@ -887,6 +1036,10 @@ def test_frames_match_serializer_and_survive_fuzz():
     for kind, chunks in (("mixed", 8), ("random", 4), ("flat", 16)):
         _check_frame_bytes_match_host_serializer(kind, chunks)
     _check_decoder_fuzz()
+    with _device_lz("0"):  # the RLE profile's frames, and its decoder fuzzed
+        for kind, chunks in (("mixed", 8), ("random", 4), ("flat", 16)):
+            _check_frame_bytes_match_host_serializer(kind, chunks)
+        _check_decoder_fuzz()
     _check_no_kernel_launches()
 
 
@@ -899,6 +1052,8 @@ def test_slice_matches_reference_main_path(reference):
     _check_content_settings_and_state()
     _check_device_rules()
     _check_foreign_frames()
+    _check_slice_rle_against_reference(*reference)
+    _check_sessions()
     _check_no_kernel_launches()
     jax.clear_caches()  # the reference codec's compiles, as the fixture's
 
@@ -987,8 +1142,102 @@ def _check_foreign_frames():
         ForeignGopSession(H, W, promote="fast", device="cpu")
 
 
+def _check_slice_rle_against_reference(img, frame, flen, ref_out):
+    """The RLE profile around the reference fixture's words (S = 2048, a
+    tail-only chunk): the port's frame equals the host serializer's
+    around the reference's XLA streams and decodes to the fixture's
+    pixels."""
+    payload = _host_payload(frame[:flen].tobytes())
+    S = len(payload) // CHUNKS
+    streams, lens, _ = _reference_rle(
+        np.frombuffer(payload, np.uint8).reshape(CHUNKS, S), S)
+    host = serialize_texture(
+        payload, TextureFormat.YCoCg_DXT5, Compressor.SNAPPY, CHUNKS,
+        precompressed=[streams[c, :lens[c]].tobytes() for c in range(CHUNKS)])
+    with _device_lz("0"):
+        mine, mine_len = encode_words(
+            words_from_numpy(np.frombuffer(payload, "<u4")), H, W, CHUNKS)
+        assert mine[:int(mine_len)].numpy().tobytes() == host
+        dec, ok = decode_pipeline(mine, H, W, "hap_q", CHUNKS, device="cpu")
+    assert bool(ok)
+    np.testing.assert_array_equal(dec.numpy(), ref_out)
+
+
+def _session_frames():
+    """Three 64x128 frames: flat (Snappy chunks under both profiles), half
+    flat, and noise (stored whole-frame raw)."""
+    rng = np.random.default_rng(12)
+    frames = rng.integers(0, 256, (3, H, W, 3), dtype=np.uint8)
+    frames[0] = 50
+    frames[1, :H // 2] = 90
+    return frames
+
+
+def _check_session_stats(frames, encoded, stats, rows):
+    for fb, st in zip(encoded, stats):
+        assert st.frame_bytes == len(fb)
+        assert st.compression_ratio == st.input_bytes / len(fb)
+        tex = ref_parse_frame(fb).textures[0]
+        assert st.input_bytes == int(tex.chunk_uncompressed_sizes.sum())
+        if tex.stored_compressor == 0xA:
+            assert st.whole_frame_raw_sections == 1
+            assert st.snappy_chunks == 0 and st.raw_chunk_fallbacks == 0
+        else:
+            snappy = int((tex.chunk_compressors == 0x0B).sum())
+            assert st.whole_frame_raw_sections == 0
+            assert st.snappy_chunks == snappy
+            assert st.raw_chunk_fallbacks == st.chunk_count - snappy
+    for r, st, fb in zip(rows, stats, encoded):
+        assert vars(st) == vars(jsession.EncodeStats.from_rows(r, len(fb)))
+
+
+def _check_sessions():
+    """DeviceSession under both profiles: stats against the host parse of
+    its frames and the reference's EncodeStats; reasons for a corrupted
+    format nibble and a corrupted compressor table."""
+    assert DECODE_REASONS == jsession.DECODE_REASONS
+    frames = _session_frames()
+    for lz in ("1", "0"):
+        with _device_lz(lz):
+            sess = DeviceSession(H, W, "hap_q", CHUNKS, batch=2,
+                                 device="cpu")
+            encoded, stats = sess.encode_with_stats(frames)
+            rows = [encode_pipeline_stats(f, "hap_q", CHUNKS,
+                                          device="cpu")[2].numpy()
+                    for f in frames]
+            out, flen, ok = sess.roundtrip(frames)
+            assert encoded == sess.encode(frames)
+            imgs, ok2 = sess.decode_bytes(encoded)
+            fmax = max(map(len, encoded))
+            padded = np.zeros((len(frames), fmax), np.uint8)
+            for i, fb in enumerate(encoded):
+                padded[i, :len(fb)] = np.frombuffer(fb, np.uint8)
+            bad = padded.copy()
+            bad[1, 3] = (bad[1, 3] & 0xF0) | 0x5  # format nibble
+            assert bad[0, 3] >> 4 == 0xC  # complex
+            bad[0, 12] = 0x07  # unknown chunk compressor
+            _, okr, reasons = sess.decode_with_reasons(bad)
+        assert ok.all() and ok2.all() and out.shape == (3, H, W, 3)
+        np.testing.assert_array_equal(out, imgs)
+        assert flen.tolist() == [len(fb) for fb in encoded]
+        assert {st.whole_frame_raw_sections for st in stats} == {0, 1}
+        assert stats[0].snappy_chunks == CHUNKS
+        _check_session_stats(frames, encoded, stats, rows)
+        assert all(_host_payload(fb) is not None for fb in encoded)
+        assert okr.tolist() == [False, False, True]
+        assert reasons[1]["format_nibble"] == [False]
+        assert all(reasons[1][k] == [True] for k in DECODE_REASONS
+                   if k != "format_nibble")
+        assert reasons[0]["tables"] == [False]
+        assert all(all(v) for v in reasons[2].values())
+        if lz == "1":
+            lz_pixels = out
+        else:  # both profiles carry the same words
+            np.testing.assert_array_equal(out, lz_pixels)
+
+
 def _check_no_kernel_launches():
     """Every CPU run went through the plain versions only."""
     for k in (LZ_EMIT, LZ_DECODE, STITCH, RAW_CHUNKS, EXEC_TABLES,
-              GENERAL_DECODE):
+              GENERAL_DECODE, RLE_COMPACT, RLE_DECODE):
         assert k.launches == 0, k.name
